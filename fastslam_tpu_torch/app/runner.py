@@ -1,8 +1,9 @@
 """Offline batch replay of a recorded log through the chunked engine.
 
 Counterpart of ``RunHistory`` and ``replay_chunked`` of
-``fastslam_tpu/app/runner.py`` (the motion-proposal path without ICP or
-adaptive floors).  A recorded log has no feedback from the estimate to the
+``fastslam_tpu/app/runner.py``, with the motion proposal or the FastSLAM 2.0
+one (``proposal_mode="fastslam2"``), without ICP or adaptive floors.  A
+recorded log has no feedback from the estimate to the
 commands, so the frontend runs over every scan first, then the filter takes
 ``chunk_size`` ticks per call of the chunked update; the ``T mod chunk_size``
 tail ticks go through the per-tick step.  Odometry pairing, the
@@ -45,9 +46,6 @@ def _check_supported(config: FastSLAMConfig) -> None:
         raise NotImplementedError(
             "use_icp_proposal and adaptive_proposal_floors are not ported yet "
             "(ROADMAP.md: ICP and adaptive proposals)")
-    if config.proposal_mode == "fastslam2":
-        raise NotImplementedError("proposal_mode='fastslam2' is not ported yet "
-                                  "(ROADMAP.md: fs2)")
 
 
 def scan_points(log):
@@ -118,18 +116,19 @@ def replay_chunked(log, config: FastSLAMConfig, chunk_size: int = 8,
     generator = torch.Generator(device=device).manual_seed(rng)
     state = init_planes_state(config, device)
     p = config.num_particles
+    fs2 = kernels.uses_fs2(config)
     n_chunks = t_total // c
     est = torch.zeros((t_total, 3), dtype=torch.float32, device=device)
     for i in range(n_chunks):
         sl = slice(i * c, (i + 1) * c)
         state, est[sl] = kernels.fastslam_steps_planes_chunked(
             state, rots_d[sl], trans_d[sl], Measurements(rb[sl], mv[sl]),
-            config, kernels.draw(generator, p, c),
+            config, kernels.draw(generator, p, c, fs2=fs2),
         )
     for t in range(n_chunks * c, t_total):
         state, est[t] = kernels.fastslam_step_planes(
             state, rots_d[t], trans_d[t], Measurements(rb[t], mv[t]), config,
-            kernels.draw(generator, p),
+            kernels.draw(generator, p, fs2=fs2),
         )
     est = est.cpu().numpy()
 

@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles ``csrc/fused_update.cu`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, loaded with :mod:`ctypes` (no
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface, loaded with :mod:`ctypes` (no
 PyTorch headers, so a build takes seconds).  The build runs at first use,
-into ``build/kernels/`` beside the package, keyed by a hash of the source and
-the flags; the ``ptxas -v`` report (registers, shared memory, spills) is kept
-beside the library as ``.log``.
+into ``build/kernels/`` beside the package, keyed by a hash of every file
+under ``csrc/`` (sources and headers) and the flags; the ``ptxas -v`` report
+(registers, shared memory, spills) is kept beside the library as ``.log``.
 
 Nothing here runs on import: the CPU tests import every module.
 """
@@ -21,14 +22,14 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "fused_update.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # -fmad=false: no contraction into multiply-adds, so the kernels round op for
 # op like the plain PyTorch versions
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +39,10 @@ _SIGNATURES = {
     "fused_update_planes_launch": [_I] + [_P] * 14 + [_I] * 4
     + [_F, _I, _F, _F, _F, _I, _P],
     "fused_update_planes_multi_launch": [_I] + [_P] * 22 + [_I] * 5
+    + [_F, _I, _F, _F, _F, _I, _P],
+    "fused_fs2_planes_launch": [_I] + [_P] * 16 + [_I] * 4
+    + [_F, _I, _F, _F, _F, _I, _P],
+    "fused_fs2_planes_multi_launch": [_I] + [_P] * 20 + [_I] * 5
     + [_F, _I, _F, _F, _F, _I, _P],
 }
 
@@ -54,23 +59,53 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def sources(csrc: Path = CSRC) -> list[Path]:
+    """The translation units: every ``.cu`` file, in name order."""
+    return sorted(csrc.glob("*.cu"))
+
+
+def source_digest(csrc: Path = CSRC) -> str:
+    """Hash of every file under ``csrc`` (name and bytes) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(path.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"fused_update_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"fastslam_kernels_{source_digest()}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for this source already exists."""
+    """Compile the kernels unless a library for these sources already exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    srcs = sources()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    reports = [proc.communicate()[0] for proc in procs]
+    failed = [(src.name, proc.returncode, text)
+              for src, proc, text in zip(srcs, procs, reports) if proc.returncode]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{text}" for name, rc, text in failed))
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(reports))
     os.replace(tmp, out)  # atomic: a concurrent build finds a whole file
     return out
 

@@ -1,19 +1,21 @@
 """FastSLAM filter steps on the planes-layout state, vectorized over particles.
 
-Counterpart of the motion-proposal part of ``fastslam_tpu/core/kernels.py``:
+Counterpart of the planes-engine part of ``fastslam_tpu/core/kernels.py``:
 propagation, weight normalization, Neff, the search-free systematic
-resample, and the per-tick and chunked steps around the fused update kernels
-of :mod:`fastslam_tpu_torch.core.cuda_kernels`.
+resample, the FastSLAM 2.0 prior scalars, and the per-tick and chunked steps
+around the fused kernels of :mod:`fastslam_tpu_torch.core.cuda_kernels`,
+with the motion proposal or the FastSLAM 2.0 one (``proposal_mode``).
 
 Every step takes its random draws as tensors (standard normals for the
-motion noise, ``u0`` for the resample), so a test can hand it the same draws
-as the JAX step.  :func:`draw` draws them from an explicit :class:`torch.Generator`.
+motion noise or the fs2 pose sample, ``u0`` for the resample), so a test can
+hand it the same draws as the JAX step.  :func:`draw` draws them from an
+explicit :class:`torch.Generator`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,25 +34,38 @@ def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
 
 
 class Draws(NamedTuple):
-    """Random inputs of one step: standard normals ``[P]`` (per tick) or
-    ``[C, P]`` (per chunk) for rotation and translation noise, and the
-    resample offset ``u0`` in [0, 1/P)."""
+    """Random inputs of one step, standard normals and the resample offset
+    ``u0`` in [0, 1/P).  The motion proposal reads ``rot``/``trans``, ``[P]``
+    per tick or ``[C, P]`` per chunk; the FastSLAM 2.0 proposal reads
+    ``noise``, ``[P, 3]`` per tick or ``[C, 3, P]`` per chunk."""
 
-    rot: torch.Tensor
-    trans: torch.Tensor
+    rot: Optional[torch.Tensor]
+    trans: Optional[torch.Tensor]
     u0: torch.Tensor
+    noise: Optional[torch.Tensor] = None
+
+
+def uses_fs2(config: FastSLAMConfig) -> bool:
+    """Whether the steps sample the FastSLAM 2.0 proposal: production only;
+    parity mode runs the motion proposal whatever ``proposal_mode`` says."""
+    return config.proposal_mode == "fastslam2" and not config.parity_mode
 
 
 def draw(generator: torch.Generator, num_particles: int,
-         num_ticks: int | None = None) -> Draws:
+         num_ticks: int | None = None, *, fs2: bool = False) -> Draws:
     """Draws of one tick (``num_ticks=None``) or one chunk, on the
-    generator's device."""
-    shape = (num_particles,) if num_ticks is None else (num_ticks, num_particles)
+    generator's device: motion noise, or the fs2 pose-sample noise."""
     device = generator.device
-    rot = torch.randn(shape, generator=generator, device=device)
-    trans = torch.randn(shape, generator=generator, device=device)
+    normal = lambda *shape: torch.randn(shape, generator=generator, device=device)
+    rot = trans = noise = None
+    if fs2:
+        noise = (normal(num_particles, 3) if num_ticks is None
+                 else normal(num_ticks, 3, num_particles))
+    else:
+        ticks = () if num_ticks is None else (num_ticks,)
+        rot, trans = normal(*ticks, num_particles), normal(*ticks, num_particles)
     u0 = torch.rand((), generator=generator, device=device) * (1.0 / num_particles)
-    return Draws(rot, trans, u0)
+    return Draws(rot, trans, u0, noise)
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +128,18 @@ def systematic_resample_indices(weights: torch.Tensor,
                                 u0: torch.Tensor) -> torch.Tensor:
     """Low-variance resampling: ancestor of position ``u0 + m/N`` is the first
     index whose cumulative weight reaches it, clipped at N-1."""
-    return grid_staircase_indices(torch.cumsum(weights, dim=0), u0, weights.shape[0])
+    return grid_staircase_indices(fixed_order_cumsum(weights), u0, weights.shape[0])
+
+
+def fixed_order_cumsum(weights: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum of non-negative weights (total below 2^15) that is the
+    same on every run: each weight is rounded to a multiple of 2^-48 and the
+    sum is taken in int64, exact in any order, then converted back.  A float
+    ``torch.cumsum`` on CUDA adds in an order that changes from run to run,
+    and one flipped resample index changes the rest of the run."""
+    scale = 2.0 ** 48
+    q = torch.round(weights.to(torch.float64) * scale).to(torch.int64)
+    return (torch.cumsum(q, dim=0).to(torch.float64) / scale).to(weights.dtype)
 
 
 def grid_staircase_indices(cum: torch.Tensor, u0: torch.Tensor,
@@ -186,11 +212,21 @@ def _normalize_and_resample(state: PlanesState, u0: torch.Tensor,
     return state
 
 
-def _check_motion_proposal(config: FastSLAMConfig) -> None:
-    if config.proposal_mode == "fastslam2":
-        raise NotImplementedError(
-            "proposal_mode='fastslam2' is not ported yet (ROADMAP.md: "
-            "'fs2' kernels fused_fs2_planes / fused_fs2_planes_multi)")
+def fs2_prior_scalars(rotation, translation, config: FastSLAMConfig,
+                      proposal_floors=None):
+    """The FastSLAM 2.0 motion prior of one tick (scalars) or a chunk
+    (``[C]``): squared floors and the rotation-XOR-translation variances.
+    ``proposal_floors`` = (xy, theta) floors, scalars or ``[C]``; ``None``
+    takes the config's.  Returns ``(rot_eff, trans_eff, s_t2, s_r2, fxy)``."""
+    fxy_f, fth_f = proposal_floors if proposal_floors is not None else (None, None)
+    fxy = (config.proposal_xy_floor if fxy_f is None else fxy_f) ** 2
+    fth = (config.proposal_theta_floor if fth_f is None else fth_f) ** 2
+    rotating = rotation != 0.0
+    rot_eff = torch.where(rotating, rotation, 0.0)
+    trans_eff = torch.where(rotating, 0.0, translation)
+    s_t2 = torch.where(rotating, 0.0, config.translation_noise ** 2) + fxy
+    s_r2 = torch.where(rotating, config.rotation_noise ** 2, 0.0) + fth
+    return rot_eff, trans_eff, s_t2, s_r2, fxy
 
 
 # ---------------------------------------------------------------------------
@@ -199,24 +235,44 @@ def _check_motion_proposal(config: FastSLAMConfig) -> None:
 
 def fastslam_step_planes(state: PlanesState, rotation, translation,
                          measurements: Measurements, config: FastSLAMConfig,
-                         draws: Draws) -> Tuple[PlanesState, torch.Tensor]:
-    """One filter tick: propagate, fused measurement update (kernel on CUDA,
-    plain version on the CPU), normalize, Neff, conditional systematic
-    resample, argmax pose estimate.
+                         draws: Draws, *, proposal_floors=None,
+                         evidence_scale=None) -> Tuple[PlanesState, torch.Tensor]:
+    """One filter tick: propagate and update (motion proposal), or predict
+    the mean motion and run the fused FastSLAM 2.0 tick (``uses_fs2``); then
+    normalize, Neff, conditional systematic resample, argmax pose estimate.
+    The kernels run on CUDA, their plain versions on the CPU.
+    ``proposal_floors`` and ``evidence_scale`` (the mode dial) feed the fs2
+    proposal only.
 
     The planes, weights and counts of ``state`` are updated in place; the
     returned state is the one to keep.  Returns ``(new_state, pose [3])``.
     """
-    _check_motion_proposal(config)
-    poses = propagate_particles(
-        state.poses, rotation, translation,
-        config.rotation_noise * draws.rot, config.translation_noise * draws.trans,
-    )
-    logw, mx, my, ca, cb, cc, cd, cnt = cuda_kernels.fused_update_planes(
-        poses, state.log_weights, state.lm_mx, state.lm_my, state.lm_ca,
-        state.lm_cb, state.lm_cc, state.lm_cd, state.lm_count,
-        measurements.range_bearing, measurements.valid, config,
-    )
+    if uses_fs2(config):
+        dev = state.device
+        rotation = torch.as_tensor(rotation, dtype=torch.float32, device=dev)
+        translation = torch.as_tensor(translation, dtype=torch.float32, device=dev)
+        rot_eff, trans_eff, s_t2, s_r2, fxy = fs2_prior_scalars(
+            rotation, translation, config, proposal_floors)
+        # mean-motion prediction with exact trig
+        yaw = wrap_angle(state.poses[:, 2] + rot_eff)
+        pred = torch.stack([state.poses[:, 0] + trans_eff * torch.cos(yaw),
+                            state.poses[:, 1] + trans_eff * torch.sin(yaw), yaw], dim=-1)
+        poses, logw, mx, my, ca, cb, cc, cd, cnt = cuda_kernels.fused_fs2_planes(
+            pred, state.log_weights, state.lm_mx, state.lm_my, state.lm_ca,
+            state.lm_cb, state.lm_cc, state.lm_cd, state.lm_count,
+            measurements.range_bearing, measurements.valid, draws.noise,
+            s_t2, s_r2, fxy, config, evidence_scale=evidence_scale,
+        )
+    else:
+        poses = propagate_particles(
+            state.poses, rotation, translation,
+            config.rotation_noise * draws.rot, config.translation_noise * draws.trans,
+        )
+        logw, mx, my, ca, cb, cc, cd, cnt = cuda_kernels.fused_update_planes(
+            poses, state.log_weights, state.lm_mx, state.lm_my, state.lm_ca,
+            state.lm_cb, state.lm_cc, state.lm_cd, state.lm_count,
+            measurements.range_bearing, measurements.valid, config,
+        )
     state = state.replace(poses=poses, log_weights=logw, lm_mx=mx, lm_my=my,
                           lm_ca=ca, lm_cb=cb, lm_cc=cc, lm_cd=cd, lm_count=cnt)
     state = _normalize_and_resample(state, draws.u0, config)
@@ -228,14 +284,19 @@ def fastslam_step_planes(state: PlanesState, rotation, translation,
 def fastslam_steps_planes_chunked(state: PlanesState, rotations: torch.Tensor,
                                   translations: torch.Tensor,
                                   measurements: Measurements,
-                                  config: FastSLAMConfig, draws: Draws
+                                  config: FastSLAMConfig, draws: Draws, *,
+                                  proposal_floors=None, evidence_scale=None
                                   ) -> Tuple[PlanesState, torch.Tensor]:
-    """C filter ticks in one call of the chunked update (production only).
+    """C filter ticks in one call of the chunked update (production only),
+    with the motion proposal or the FastSLAM 2.0 one.
 
-    Propagation runs inside the update; normalization, Neff and the resample
-    run at the chunk boundary only.  Per-tick pose estimates are the argmax
-    of the per-tick (unnormalized) log-weights, before the boundary resample.
-    ``draws.rot``/``draws.trans`` are ``[C, P]``.
+    Propagation (or the fs2 mean-motion prediction) runs inside the update;
+    normalization, Neff and the resample run at the chunk boundary only.
+    Per-tick pose estimates are the argmax of the per-tick (unnormalized)
+    log-weights, before the boundary resample.  The motion proposal reads
+    ``draws.rot``/``draws.trans`` ``[C, P]``, fs2 ``draws.noise``
+    ``[C, 3, P]``; ``proposal_floors`` and ``evidence_scale`` (scalars or
+    ``[C]``) feed fs2 only.
 
     Returns ``(new_state, per-tick poses [C, 3])``.
     """
@@ -243,22 +304,26 @@ def fastslam_steps_planes_chunked(state: PlanesState, rotations: torch.Tensor,
         raise NotImplementedError(
             "chunked execution is a production-mode feature; parity mode "
             "resamples per tick: use fastslam_step_planes")
-    _check_motion_proposal(config)
     c = rotations.shape[0]
-    rot_noise = config.rotation_noise * draws.rot
-    trans_noise = config.translation_noise * draws.trans
-    rotating = (rotations != 0.0)[:, None]
-    noisy_rot = torch.where(rotating, rotations[:, None] + rot_noise, 0.0)
-    noisy_trans = torch.where(rotating, 0.0, translations[:, None] + trans_noise)
+    planes = (state.poses, state.log_weights, state.lm_mx, state.lm_my,
+              state.lm_ca, state.lm_cb, state.lm_cc, state.lm_cd, state.lm_count,
+              measurements.range_bearing, measurements.valid)
+    if uses_fs2(config):
+        rot_eff, trans_eff, s_t2, s_r2, fxy = fs2_prior_scalars(
+            rotations, translations, config, proposal_floors)
+        out = cuda_kernels.fused_fs2_planes_multi(
+            *planes, draws.noise, rot_eff, trans_eff, s_t2, s_r2, fxy, config,
+            evidence_scale=evidence_scale)
+    else:
+        rot_noise = config.rotation_noise * draws.rot
+        trans_noise = config.translation_noise * draws.trans
+        rotating = (rotations != 0.0)[:, None]
+        noisy_rot = torch.where(rotating, rotations[:, None] + rot_noise, 0.0)
+        noisy_trans = torch.where(rotating, 0.0, translations[:, None] + trans_noise)
+        out = cuda_kernels.fused_update_planes_multi(
+            *planes, noisy_rot.contiguous(), noisy_trans.contiguous(), config)
+    tx, ty, tyaw, tlogw, mx, my, ca, cb, cc, cd, cnt = out
 
-    tx, ty, tyaw, tlogw, mx, my, ca, cb, cc, cd, cnt = (
-        cuda_kernels.fused_update_planes_multi(
-            state.poses, state.log_weights, state.lm_mx, state.lm_my,
-            state.lm_ca, state.lm_cb, state.lm_cc, state.lm_cd, state.lm_count,
-            measurements.range_bearing, measurements.valid,
-            noisy_rot.contiguous(), noisy_trans.contiguous(), config,
-        )
-    )
     best = torch.argmax(tlogw, dim=1)                        # [C], first max
     ticks = torch.arange(c, device=tx.device)
     est = torch.stack([tx[ticks, best], ty[ticks, best], tyaw[ticks, best]], dim=-1)

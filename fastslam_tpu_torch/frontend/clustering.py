@@ -50,17 +50,20 @@ def connected_component_clusters(points: torch.Tensor, valid: torch.Tensor,
 
 def _centroids(points: torch.Tensor, valid: torch.Tensor,
                labels: torch.Tensor) -> Clusters:
+    """Per-cluster sums over a dense ``[N, N]`` membership mask, reduced with
+    ``sum(dim=1)``: a fixed summation order, so the card gives the same
+    centroids on every run (a float ``index_add_`` adds with atomics there,
+    in an order that changes from run to run)."""
     n = points.shape[0]
     safe = torch.where(valid, labels, n - 1)
-    ones = valid.to(points.dtype)
-    zeros = lambda: torch.zeros((n,), dtype=points.dtype, device=points.device)
-    count = zeros().index_add_(0, safe, ones)
-    sx = zeros().index_add_(0, safe, points[:, 0] * ones)
-    sy = zeros().index_add_(0, safe, points[:, 1] * ones)
+    idx = torch.arange(n, device=points.device)
+    member = (safe[None, :] == idx[:, None]) & valid[None, :]   # [cluster, point]
+    count = member.sum(dim=1).to(points.dtype)                  # exact
+    sx = torch.where(member, points[None, :, 0], 0.0).sum(dim=1)
+    sy = torch.where(member, points[None, :, 1], 0.0).sum(dim=1)
     denom = torch.clamp_min(count, 1.0)
     cx = (sx / denom)[safe]
     cy = (sy / denom)[safe]
-    idx = torch.arange(n, device=points.device)
     return Clusters(
         centroid=torch.stack([cx, cy], dim=-1),
         is_rep=valid & (labels == idx),

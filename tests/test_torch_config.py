@@ -105,3 +105,20 @@ def test_package_sources_name_neither_jax_nor_the_jax_package():
                             " jax" in s or " fastslam_tpu." in s or s.endswith(" fastslam_tpu")):
                         offenders.append(f"{path}: {s}")
     assert not offenders, offenders
+
+
+def test_fs2_config_fields_carry_across():
+    """The fields the FastSLAM 2.0 path reads come across from a JAX config."""
+    jcfg = JaxConfig(parity_mode=False, proposal_mode="fastslam2",
+                     proposal_xy_floor=0.02, proposal_theta_floor=0.005,
+                     fs2_evidence_weights=True, fs2_mode_dial=False,
+                     fs2_dial_lo_floor=2e-3, fs2_dial_hi_floor=5e-3,
+                     translation_noise=0.01, rotation_noise=0.002,
+                     use_pallas=True, fs2_reuse_association=True)
+    cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
+    for name in ("parity_mode", "proposal_mode", "proposal_xy_floor",
+                 "proposal_theta_floor", "fs2_evidence_weights", "fs2_mode_dial",
+                 "fs2_dial_lo_floor", "fs2_dial_hi_floor", "translation_noise",
+                 "rotation_noise"):
+        assert getattr(cfg, name) == getattr(jcfg, name), name
+    assert not hasattr(cfg, "fs2_reuse_association")   # the retired lever

@@ -127,3 +127,21 @@ def test_draws_come_from_the_generator():
     assert torch.equal(a.rot, b.rot) and torch.equal(a.u0, b.u0)
     assert 0.0 <= a.u0.item() < 1.0 / 64
     assert kernels.draw(torch.Generator().manual_seed(7), 64).rot.shape == (64,)
+    f = kernels.draw(torch.Generator().manual_seed(7), 64, 4, fs2=True)
+    assert f.noise.shape == (4, 3, 64) and f.rot is None and f.trans is None
+    assert 0.0 <= f.u0.item() < 1.0 / 64
+    assert kernels.draw(torch.Generator().manual_seed(7), 64, fs2=True).noise.shape == (64, 3)
+
+
+@pytest.mark.parametrize("n", [1, 256, 100_003])
+def test_fixed_order_cumsum_is_the_rounded_exact_sum(n):
+    """The resample's cumulative sum: within one float32 ulp of the exact
+    sum, and the same for the weights in any memory layout."""
+    w = np.random.default_rng(n).random(n).astype(np.float32)
+    w /= w.sum()
+    got = kernels.fixed_order_cumsum(torch.from_numpy(w))
+    assert got.dtype == torch.float32
+    exact = np.cumsum(w.astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), exact, rtol=0, atol=np.spacing(np.float32(1.0)))
+    strided = torch.from_numpy(np.stack([w, w], axis=1))[:, 0]
+    assert torch.equal(kernels.fixed_order_cumsum(strided), got)

@@ -67,14 +67,35 @@ def test_noisy_replay_tracks_like_jax(drive):
     assert ate < 0.3 and ate_jax < 0.3, (ate, ate_jax)
 
 
+def test_fs2_replay_tracks_like_jax(drive):
+    """``proposal_mode="fastslam2"``: 4 chunks of 10 and 8 per-tick tail
+    ticks on both sides, each held to the JAX package's fs2 replay bar
+    (ATE < 0.25 m, ``tests/test_drivers_e2e.py``)."""
+    jcfg = jax_config(proposal_mode="fastslam2")
+    cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
+    ate_jax = jax_replay_chunked(drive, jcfg, chunk_size=10, rng=0).metrics()["ate_rmse_m"]
+    launches = dict(cuda_kernels.LAUNCHES)
+    hist = replay_chunked(drive, cfg, chunk_size=10, rng=0, device="cpu")
+    assert cuda_kernels.LAUNCHES == launches   # the CPU runs no kernel
+    est = np.asarray(hist.est_poses)
+    assert est.shape == (48, 3) and np.isfinite(est).all()
+    ate = hist.metrics()["ate_rmse_m"]
+    assert ate < 0.25 and ate_jax < 0.25, (ate, ate_jax)
+
+
 def test_replay_refuses_paths_not_ported(drive):
+    """Parity mode, ICP and adaptive floors are refused; fs2 runs."""
     cfg = config_from_jax_fields(dataclasses.asdict(jax_config()))
     with pytest.raises(ValueError, match="production"):
         replay_chunked(drive, cfg.replace(parity_mode=True), device="cpu")
     for kw in ({"use_icp_proposal": True}, {"adaptive_proposal_floors": True},
-               {"proposal_mode": "fastslam2"}):
+               {"proposal_mode": "fastslam2", "adaptive_proposal_floors": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             replay_chunked(drive, cfg.replace(**kw), device="cpu")
+    short = record_log(SimWorld(seed=3), num_ticks=6)
+    hist = replay_chunked(short, cfg.replace(proposal_mode="fastslam2"), chunk_size=4,
+                          device="cpu")
+    assert len(hist.est_poses) == 6
 
 
 def test_cli_records_and_runs_on_the_cpu(tmp_path, capsys):
