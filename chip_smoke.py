@@ -30,10 +30,32 @@ Phases, one line each (or more):
 8. fs2 on the card against the CPU: 3 chunks of 8 and 4 tail ticks at
    P=256, L=16 with the same draws; estimates and final state within
    atol = rtol = 1e-4;
-9. kernel and plain times per tick, with CUDA events.
+9. kernel and plain times per tick, with CUDA events, and the ICP
+   nearest-neighbour kernel's time per call on the adaptive replay's batch
+   of cloud pairs beside its plain version and ``torch.cdist`` + masked
+   ``min``;
+10. the ICP nearest-neighbour kernel against its plain version: the
+    adaptive replay's own batch (597 pairs of 180-point scans), random
+    clouds with ties and invalid targets, and one large pair through the
+    shared-memory tiling; indices and distances must agree exactly;
+11. the fs2 + ICP + adaptive-floors main path: ``replay_chunked`` at
+    P=100,000, L=64, chunk 8 on the 300-tick drive, clean and with wheel
+    slip (0.02, 0.02); the counters must show 37 chunked and 4 per-tick fs2
+    launches, no motion launch and ICP launches; ATE under 0.05 m clean and
+    0.10 m with slip; a second clean run must repeat bit for bit; and at
+    P=256, L=16 the ICP stage (blended odometry, floors, dial) and a
+    noise-free motion + ICP replay must agree with the CPU path;
+12. the online main path: ``run_driver(ReplayDriver(log))`` at P=100,000,
+    L=64, fs2 + ICP + adaptive floors, 300 ticks; 300 per-tick fs2 launches,
+    no chunked one, ICP launches, ATE under 0.05 m, a second run bit for
+    bit, and the wall time per tick with its host-clock split (ICP
+    refinement, frontend + step) as ``run_driver`` records it.
 
 Any failure raises.  The line before the last is a JSON summary of the
-kernels; the last line is ``{"ok": true, "device": {...}}``.
+kernels (launches of each main path's first run and their sum; the bound
+from this run's shapes and the landmark slots the timed calls read and
+write, against the H100's published peaks); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -58,9 +80,29 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                          "fastslam_tpu/core/pallas_kernels.py:1113"),
     "fused_fs2_planes_multi": ("fastslam_tpu_torch/csrc/fused_fs2.cu",
                                "fastslam_tpu/core/pallas_kernels.py:1735"),
+    "icp_correspondences": ("fastslam_tpu_torch/csrc/icp_nn.cu",
+                            "fastslam_tpu/core/pallas_kernels.py:1901"),
 }
 MOTION = ("fused_update_planes", "fused_update_planes_multi")
 FS2 = ("fused_fs2_planes", "fused_fs2_planes_multi")
+ICP = "icp_correspondences"
+ADAPTIVE_C = 8       # the chunk of the adaptive replay (EVAL.md:55 geometry)
+SLIP = (0.02, 0.02)  # wheel slip (rotation, translation std-devs)
+
+# the H100 SXM's published peaks (NVIDIA data sheet, at the 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# operations of the filter kernels, counted from the plain versions'
+# arithmetic: per usable landmark slot of one association pass, and per
+# measurement and particle outside that loop (observation, EKF, weight;
+# the fs2 proposal accumulation), and per particle for the fs2 solve+sample
+ASSOC_OPS_PER_SLOT = 20
+EKF_OPS = 120
+PROPOSAL_OPS = 100
+SAMPLE_OPS = 80
+# per (source point, valid target) of the ICP search: 2 sub, 2 mul, add, compare
+NN_OPS = 6
+PLANES = ("lm_mx", "lm_my", "lm_ca", "lm_cb", "lm_cd")   # production's five
 
 
 def phase(n, text):
@@ -95,7 +137,8 @@ def ptxas_summary(report: str):
             m = re.search(r"(fused_(?:update|fs2)_planes(?:_multi)?_kernel)I((?:Lb[01]E)+)",
                           entry.group(1))
             name = (f"{m.group(1)}<{','.join(re.findall('Lb([01])E', m.group(2)))}>"
-                    if m else entry.group(1))
+                    if m else "icp_nn_kernel" if "icp_nn_kernel" in entry.group(1)
+                    else entry.group(1))
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill and name:
             out.append([name, None, int(spill.group(1))])
@@ -460,7 +503,94 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def phase9(gen, ms):
+def bound_ms(nbytes, ops):
+    """The least time of a function on the H100: its bytes over the memory
+    rate or its operations over the f32 rate, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def footprint(run, state):
+    """(occupied slots, written slots) of one call of ``run`` on a copy of
+    ``state``, each summed over particles: the kernels read the planes of
+    the occupied slots only, and write only the slots that a measurement
+    updates or appends (over a whole chunk for the chunked kernels)."""
+    import torch
+
+    copy = state.clone()
+    run(copy)
+    torch.cuda.synchronize()
+    written = torch.zeros((L, P), dtype=torch.bool, device=DEVICE)
+    for name in PLANES:
+        written |= getattr(copy, name) != getattr(state, name)
+    return int(state.lm_count.sum()), int(written.sum())
+
+
+def filter_bounds(fp):
+    """Bounds per tick of the four filter kernels at P, L, M, C.  ``fp``
+    holds each kernel's :func:`footprint` on the state its timing starts
+    from.  Each input is read once and each output written once: the five
+    production planes over the occupied slots in and the written slots
+    out, and the per-tick rows.  The association is counted over the
+    occupied slots, a lower bound on its work (the chunked kernels' maps
+    grow within a chunk)."""
+    rows = (3 + 2 + 2 + 2) * P * 4          # poses, cos/sin yaw, logw and cnt r/w
+    planes = {k: 5 * 4 * (slots + written) for k, (slots, written) in fp.items()}
+    motion_ops = lambda k: M * (ASSOC_OPS_PER_SLOT * fp[k][0] + EKF_OPS * P)
+    fs2_ops = lambda k: (M * (2 * ASSOC_OPS_PER_SLOT * fp[k][0]
+                              + (PROPOSAL_OPS + EKF_OPS) * P) + SAMPLE_OPS * P)
+    tick, chunk = "fused_update_planes", "fused_update_planes_multi"
+    fs2_tick, fs2_chunk = "fused_fs2_planes", "fused_fs2_planes_multi"
+    return {
+        tick: bound_ms(planes[tick] + rows, motion_ops(tick)),
+        chunk: bound_ms((planes[chunk] + rows + 8 * C * P * 4) / C,   # motion rows, traj
+                        motion_ops(chunk)),
+        fs2_tick: bound_ms(planes[fs2_tick] + rows + 6 * P * 4, fs2_ops(fs2_tick)),
+        fs2_chunk: bound_ms((planes[fs2_chunk] + rows + 7 * C * P * 4) / C,  # noise, traj
+                            fs2_ops(fs2_chunk)),
+    }
+
+
+def icp_bound(batch):
+    """Bound per call of the ICP search on ``(pre, target, source_valid,
+    target_valid)``: source and target points and flags read, distances and
+    indices written; NN_OPS per source point and valid target."""
+    pre, tgt, _, tv = batch
+    b, n, mt = pre.shape[0], pre.shape[1], tgt.shape[1]
+    nbytes = b * (n * 8 + mt * 8 + mt + n * 8)
+    return bound_ms(nbytes, NN_OPS * n * int(tv.sum()))
+
+
+def icp_library(batch):
+    """``torch.cdist`` then a masked ``min``: the nearest library
+    counterpart of the ICP search (three calls, not one)."""
+    import torch
+
+    pre, tgt, _, tv = batch
+    d = torch.cdist(pre, tgt)
+    d.masked_fill_(~tv[:, None, :], torch.inf)
+    return d.min(dim=-1)
+
+
+def profiled_device_us(fn, kernel, reps=20):
+    """Mean device time of ``kernel`` per call of ``fn`` under
+    ``torch.profiler`` (CUPTI), or None when it records no such event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                for e in prof.key_averages() if kernel in e.key)
+    return total / reps if total else None
+
+
+def phase9(gen, ms, batch):
     import torch
 
     from fastslam_tpu_torch.core import cuda_kernels, kernels
@@ -472,40 +602,277 @@ def phase9(gen, ms):
     noisy_trans = 0.4 + cfg.translation_noise * d.trans
     z, zv = tiled(ms)
     sk, sp = state.clone(), state.clone()
-    tick = lambda fn, s: (lambda: fn(state.poses, *args_of(s), ms.range_bearing,
-                                     ms.valid, cfg))
-    chunk = lambda fn, s: (lambda: fn(state.poses, state.log_weights, *args_of(s)[1:],
-                                      z, zv, noisy_rot, noisy_trans, cfg))
+    tick = lambda fn: (lambda s: fn(state.poses, *args_of(s), ms.range_bearing,
+                                    ms.valid, cfg))
+    chunk = lambda fn: (lambda s: fn(state.poses, state.log_weights, *args_of(s)[1:],
+                                     z, zv, noisy_rot, noisy_trans, cfg))
     fcfg = config(proposal_mode="fastslam2")
     pred, noise, s_t2, s_r2, fxy, _ = fs2_tick_inputs(fcfg, gen, state, None)
     cnoise, prior, _ = fs2_chunk_inputs(fcfg, gen)
-    fs2_tick = lambda fn, s: (lambda: fn(pred, *args_of(s), ms.range_bearing, ms.valid,
-                                         noise, s_t2, s_r2, fxy, fcfg))
-    fs2_chunk = lambda fn, s: (lambda: fn(state.poses, state.log_weights,
-                                          *args_of(s)[1:], z, zv, cnoise, *prior, fcfg))
-    # plain, kernel, kernel, plain: the card's clocks drift between runs
-    t = {}
-    for name, fn, reps in (
-        ("plain_tick", tick(cuda_kernels.fused_update_planes_ref, sp), 3),
-        ("plain_fs2_tick", fs2_tick(cuda_kernels.fused_fs2_planes_ref, sp), 3),
-        ("tick", tick(cuda_kernels.fused_update_planes, sk), 20),
-        ("fs2_tick", fs2_tick(cuda_kernels.fused_fs2_planes, sk), 20),
-        ("chunk", chunk(cuda_kernels.fused_update_planes_multi, sk), 5),
-        ("fs2_chunk", fs2_chunk(cuda_kernels.fused_fs2_planes_multi, sk), 5),
-        ("plain_chunk", chunk(cuda_kernels.fused_update_planes_multi_ref, sp), 2),
-        ("plain_fs2_chunk", fs2_chunk(cuda_kernels.fused_fs2_planes_multi_ref, sp), 2),
+    fs2_tick = lambda fn: (lambda s: fn(pred, *args_of(s), ms.range_bearing, ms.valid,
+                                        noise, s_t2, s_r2, fxy, fcfg))
+    fs2_chunk = lambda fn: (lambda s: fn(state.poses, state.log_weights,
+                                         *args_of(s)[1:], z, zv, cnoise, *prior, fcfg))
+    pre, tgt, _, tv = batch
+    nn = lambda fn: (lambda _: fn(pre, tgt, tv))
+    # plain, kernel, kernel, plain: the card's clocks drift between runs; a
+    # filter kernel's footprint is read on the state its timing starts from
+    t, fp = {}, {}
+    for name, fn, s, reps in (
+        ("plain_nn", nn(cuda_kernels.icp_correspondences_ref), None, 10),
+        ("plain_tick", tick(cuda_kernels.fused_update_planes_ref), sp, 3),
+        ("plain_fs2_tick", fs2_tick(cuda_kernels.fused_fs2_planes_ref), sp, 3),
+        ("fused_update_planes", tick(cuda_kernels.fused_update_planes), sk, 20),
+        ("fused_fs2_planes", fs2_tick(cuda_kernels.fused_fs2_planes), sk, 20),
+        ("fused_update_planes_multi", chunk(cuda_kernels.fused_update_planes_multi), sk, 5),
+        ("fused_fs2_planes_multi", fs2_chunk(cuda_kernels.fused_fs2_planes_multi), sk, 5),
+        ("plain_chunk", chunk(cuda_kernels.fused_update_planes_multi_ref), sp, 2),
+        ("plain_fs2_chunk", fs2_chunk(cuda_kernels.fused_fs2_planes_multi_ref), sp, 2),
+        ("nn", nn(cuda_kernels.icp_correspondences), None, 50),
+        ("library_nn", lambda _: icp_library(batch), None, 20),
+        ("nn_again", nn(cuda_kernels.icp_correspondences), None, 50),
     ):
-        t[name] = time_ms(fn, reps)
+        if s is sk:
+            fp[name] = footprint(fn, s)
+        t[name] = time_ms(lambda: fn(s), reps)
     times = {
-        "fused_update_planes": (t["tick"], t["plain_tick"]),
-        "fused_update_planes_multi": (t["chunk"] / C, t["plain_chunk"] / C),
-        "fused_fs2_planes": (t["fs2_tick"], t["plain_fs2_tick"]),
-        "fused_fs2_planes_multi": (t["fs2_chunk"] / C, t["plain_fs2_chunk"] / C),
+        "fused_update_planes": (t["fused_update_planes"], t["plain_tick"], None),
+        "fused_update_planes_multi": (t["fused_update_planes_multi"] / C,
+                                      t["plain_chunk"] / C, None),
+        "fused_fs2_planes": (t["fused_fs2_planes"], t["plain_fs2_tick"], None),
+        "fused_fs2_planes_multi": (t["fused_fs2_planes_multi"] / C,
+                                   t["plain_fs2_chunk"] / C, None),
     }
-    for name, (k, pl) in times.items():
-        phase(9, f"{name}: kernel {k:.4f} ms/tick, plain {pl:.4f} ms/tick "
+    bounds = filter_bounds(fp)
+    for name, (k, pl, _) in times.items():
+        b, by = bounds[name]
+        slots, written = fp[name]
+        phase(9, f"{name}: kernel {k:.4f} ms/tick, plain {pl:.4f} ms/tick, bound "
+                 f"{b:.4f} ms/tick ({by}; per particle {slots / P:.2f} occupied "
+                 f"slots read, {written / P:.2f} written) "
                  f"(P={P} L={L} M={M}{f' C={C}' if 'multi' in name else ''})")
-    return times
+    device_us = profiled_device_us(lambda: cuda_kernels.icp_correspondences(pre, tgt, tv),
+                                   "icp_nn_kernel")
+    phase(9, f"{ICP}: device time per launch under torch.profiler: "
+             + (f"{device_us:.2f} us" if device_us is not None else "no device event seen"))
+    times[ICP] = (t["nn"], t["plain_nn"], t["library_nn"])
+    bounds[ICP] = icp_bound(batch)
+    phase(9, f"{ICP}: kernel {t['nn']:.4f} ms/call (again {t['nn_again']:.4f}), plain "
+             f"{t['plain_nn']:.4f} ms/call, torch.cdist + masked min "
+             f"{t['library_nn']:.4f} ms/call, bound {bounds[ICP][0]:.6f} ms "
+             f"({bounds[ICP][1]}) ({pre.shape[0]} pairs, {pre.shape[1]} x "
+             f"{tgt.shape[1]} points)")
+    return times, bounds
+
+
+def adaptive_config(**kw):
+    return config(proposal_mode="fastslam2", use_icp_proposal=True,
+                  adaptive_proposal_floors=True, icp_blend=0.0, **kw)
+
+
+def replay_icp_batch(log):
+    """The cloud pairs the adaptive replay's ICP stage searches first:
+    the 299 single-step and 298 two-step pairs of the drive, warm-started."""
+    import torch
+
+    from fastslam_tpu_torch.app.runner import icp_stage_pairs, odometry, scan_points
+
+    pts, valid = scan_points(log)
+    rots, trans = odometry(log, adaptive_config())
+    pre, tgt, sv, tv, _, _ = icp_stage_pairs(
+        torch.from_numpy(pts).to(DEVICE), torch.from_numpy(valid).to(DEVICE),
+        rots, trans, two_step=True)
+    return pre, tgt.contiguous(), sv.contiguous(), tv.contiguous()
+
+
+def phase10(batch):
+    """The ICP kernel against its plain version: exact indices and distances."""
+    import torch
+
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    src = torch.randn((64, 180, 2), generator=gen, device=DEVICE) * 3.0
+    tgt = torch.randn((64, 180, 2), generator=gen, device=DEVICE) * 3.0
+    tgt[:, 90:135] = tgt[:, :45]                   # duplicate targets: ties
+    src[:, 0] = tgt[:, 0]                          # a distance of 0
+    tv = torch.rand((64, 180), generator=gen, device=DEVICE) < 0.7
+    tv[5] = False                                  # a cloud with no valid target
+    large = (torch.randn((4096, 2), generator=gen, device=DEVICE) * 5.0,
+             torch.randn((8192, 2), generator=gen, device=DEVICE) * 5.0,
+             torch.rand(8192, generator=gen, device=DEVICE) < 0.9)
+    many = (torch.randn((70_000, 6, 2), generator=gen, device=DEVICE),
+            torch.randn((70_000, 8, 2), generator=gen, device=DEVICE),
+            torch.rand((70_000, 8), generator=gen, device=DEVICE) < 0.8)
+    worst = 0.0
+    for name, (s, t, v) in (("replay batch", (batch[0], batch[1], batch[3])),
+                            ("random ties/invalid", (src, tgt, tv)),
+                            ("large pair 4096 x 8192", large),
+                            ("70000 pairs, past a grid dimension", many)):
+        got = cuda_kernels.icp_correspondences(s, t, v)
+        torch.cuda.synchronize()
+        want = cuda_kernels.icp_correspondences_ref(s, t, v)
+        bad_idx = int((got[1] != want[1]).sum())
+        finite = torch.isfinite(want[0])
+        if not torch.equal(torch.isfinite(got[0]), finite):
+            raise AssertionError(f"ICP {name}: infinite distances differ")
+        err = float((got[0][finite] - want[0][finite]).abs().max()) if finite.any() else 0.0
+        if bad_idx or err:
+            raise AssertionError(f"ICP {name}: {bad_idx} index mismatches, max abs "
+                                 f"err {err:.3e}")
+        worst = max(worst, err)
+        phase(10, f"ICP NN {name} {tuple(s.shape)} vs {tuple(t.shape)}: index "
+                  f"mismatches 0, max abs err {err:.3e}, no valid target in "
+                  f"{int((~v.any(dim=-1)).sum()) if v.dim() == 2 else int(not v.any())} "
+                  f"cloud(s)")
+    return worst
+
+
+def zeroed_run(run):
+    """``run()`` with every launch counter set to 0 just before; returns its
+    result, the counters just after, and the wall time."""
+    import torch
+
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    for k in cuda_kernels.LAUNCHES:
+        cuda_kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(cuda_kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def check_icp_launches(tag, launches, expected):
+    """``expected`` launches of the filter kernels (0 for the others) and at
+    least one launch of the ICP kernel, whose count depends on the data."""
+    want = {k: expected.get(k, 0) for k in launches if k != ICP}
+    if {k: launches[k] for k in want} != want or not launches[ICP] > 0:
+        raise AssertionError(f"{tag} launches {launches}, expected {want} and ICP > 0")
+
+
+def check_estimates(tag, hist, ate_bar):
+    import numpy as np
+
+    est = np.asarray(hist.est_poses)
+    if est.shape != (300, 3) or not np.isfinite(est).all():
+        raise AssertionError(f"{tag}: estimates shape {est.shape}, finite "
+                             f"{np.isfinite(est).all()}")
+    ate = hist.metrics()["ate_rmse_m"]
+    if not ate < ate_bar:
+        raise AssertionError(f"{tag}: ATE {ate} m >= {ate_bar} m")
+    return est, ate
+
+
+def phase11(log, fs2_ate):
+    import numpy as np
+    import torch
+
+    from fastslam_tpu_torch.app.runner import (
+        icp_floor_stage, odometry, replay_chunked, scan_points,
+    )
+    from fastslam_tpu_torch.config import FastSLAMConfig
+    from fastslam_tpu_torch.drivers.replay import record_log
+    from fastslam_tpu_torch.drivers.sim_world import SimWorld
+
+    cfg = adaptive_config()
+    replay = lambda slip=(0.0, 0.0): replay_chunked(
+        log, cfg, chunk_size=ADAPTIVE_C, rng=0, device=DEVICE, odometry_noise=slip)
+    hist, launches, wall = zeroed_run(replay)
+    check_icp_launches("adaptive replay", launches,
+                       {"fused_fs2_planes_multi": 37, "fused_fs2_planes": 4})
+    est, ate = check_estimates("adaptive replay", hist, 0.05)
+    fixed = replay_chunked(log, config(proposal_mode="fastslam2"), chunk_size=ADAPTIVE_C,
+                           rng=0, device=DEVICE).metrics()["ate_rmse_m"]
+    phase(11, f"replay_chunked fs2+ICP+adaptive 300 ticks P={P} L={L} chunk "
+              f"{ADAPTIVE_C} on cuda: ATE {ate:.4f} m (fs2 replay at fixed floors: "
+              f"{fixed:.4f} m at chunk {ADAPTIVE_C}, {fs2_ate:.4f} m at chunk {C}; "
+              f"adaptive beats fixed: {ate < fixed}), wall {wall:.2f} s, final floors "
+              f"{tuple(round(f, 6) for f in hist.final_floors)}, launches {launches}")
+    again = np.asarray(replay().est_poses)
+    if not np.array_equal(again, est):
+        raise AssertionError(f"adaptive replay: a second run differs by "
+                             f"{np.abs(again - est).max():.3e}")
+    phase(11, "a second run gives the same 300 estimates bit for bit")
+    slipped, slip_launches, slip_wall = zeroed_run(lambda: replay(SLIP))
+    _, slip_ate = check_estimates("adaptive replay with slip", slipped, 0.10)
+    phase(11, f"with wheel slip {SLIP}: ATE {slip_ate:.4f} m, wall {slip_wall:.2f} s, "
+              f"ICP launches {slip_launches[ICP]}")
+
+    # the ICP stage and a noise-free motion + ICP replay, card against CPU
+    pts, valid = scan_points(log)
+    rots, trans = odometry(log, cfg)
+    rng = np.random.default_rng(3)
+    rots = np.where(rots != 0, rots + rng.normal(0, SLIP[0], 300), 0).astype(np.float32)
+    trans = np.where(trans != 0, trans + rng.normal(0, SLIP[1], 300), 0).astype(np.float32)
+    v_active = np.concatenate([[False], np.asarray(log.cmd_v[:-1]) != 0])
+    small = FastSLAMConfig(num_particles=256, max_landmarks=16, parity_mode=False,
+                           proposal_mode="fastslam2", use_icp_proposal=True,
+                           adaptive_proposal_floors=True)
+    stage = {dev: icp_floor_stage(torch.from_numpy(pts).to(dev),
+                                  torch.from_numpy(valid).to(dev), rots, trans,
+                                  v_active, small)
+             for dev in (DEVICE, "cpu")}
+    # the floors are medians of ICP residuals, which differ in the last bits
+    # between the card's and the CPU's sums: 1e-5.  The dial is a ramp of the
+    # floors of slope 1 / (hi - lo) = 400, so on each tick it may differ by
+    # that slope times the larger of its two floors' differences, plus the
+    # float32 rounding of the stored floors and dial (1e-6)
+    errs = {}
+    for name, g, c in zip(stage["cpu"]._fields, stage[DEVICE], stage["cpu"]):
+        errs[name] = float(np.abs(g - c).max())
+        if name != "dial" and not errs[name] <= 1e-5:
+            raise AssertionError(f"ICP stage {name}: cuda vs cpu max diff {errs[name]}")
+    slope = 1.0 / (small.fs2_dial_hi_floor - small.fs2_dial_lo_floor)
+    floor_diff = np.maximum(*(np.abs(getattr(stage[DEVICE], f) - getattr(stage["cpu"], f))
+                              for f in ("floors_xy", "floors_th")))
+    dial_diff = np.abs(stage[DEVICE].dial - stage["cpu"].dial)
+    dial_limit = slope * floor_diff.astype(np.float64) + 1e-6
+    if (dial_diff > dial_limit).any():
+        raise AssertionError(f"ICP stage dial: cuda vs cpu past slope x floor difference "
+                             f"on {int((dial_diff > dial_limit).sum())} ticks, max diff "
+                             f"{errs['dial']}")
+    motion_icp = small.replace(proposal_mode="motion", adaptive_proposal_floors=False,
+                               icp_blend=0.5, rotation_noise=0.0, translation_noise=0.0,
+                               warmup_iterations=8)
+    short = record_log(SimWorld(seed=3), num_ticks=52)
+    on = {dev: np.asarray(replay_chunked(short, motion_icp, chunk_size=8,
+                                         device=dev).est_poses)
+          for dev in (DEVICE, "cpu")}
+    diff = float(np.abs(on[DEVICE] - on["cpu"]).max())
+    if not diff < 1e-4:
+        raise AssertionError(f"noise-free motion + ICP replay: cuda vs cpu max diff {diff}")
+    phase(11, f"ICP stage with slip, cuda vs cpu: max diff "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (the dial's limit on its worst tick "
+              f"{dial_limit[np.argmax(dial_diff)]:.3e})"
+              + f"; noise-free motion + ICP replay (P=256, 52 ticks): max diff {diff:.3e}")
+    return launches
+
+
+def phase12(log):
+    import numpy as np
+
+    from fastslam_tpu_torch.app.runner import run_driver
+    from fastslam_tpu_torch.drivers.replay import ReplayDriver
+
+    cfg = adaptive_config()
+    online = lambda: run_driver(ReplayDriver(log), cfg, rng=0, device=DEVICE)
+    hist, launches, wall = zeroed_run(online)
+    check_icp_launches("online loop", launches, {"fused_fs2_planes": 300})
+    est, ate = check_estimates("online loop", hist, 0.05)
+    per = {k: v / len(log) * 1e3 for k, v in hist.stage_seconds.items()}
+    phase(12, f"run_driver(ReplayDriver) fs2+ICP+adaptive 300 ticks P={P} L={L} on "
+              f"cuda: ATE {ate:.4f} m, wall {wall:.2f} s = {wall / 300 * 1e3:.2f} ms per "
+              f"tick (host clock: ICP refine {per['icp_refine']:.3f}, frontend + step "
+              f"{per['tick']:.3f}), final floors "
+              f"{tuple(round(f, 6) for f in hist.final_floors)}, launches {launches}")
+    again = np.asarray(online().est_poses)
+    if not np.array_equal(again, est):
+        raise AssertionError(f"online loop: a second run differs by "
+                             f"{np.abs(again - est).max():.3e}")
+    phase(12, "a second run gives the same 300 estimates bit for bit")
+    return launches
 
 
 def main() -> int:
@@ -544,18 +911,26 @@ def main() -> int:
     errs = {"fused_update_planes": phase2(gen, ms),
             "fused_update_planes_multi": phase3(gen, ms)}
     log = record_log(SimWorld(seed=3), num_ticks=300)
-    launches = phase4(log)
+    paths = {"motion_replay": phase4(log)}   # launches of each main path's run
     errs["fused_fs2_planes"] = phase5(gen, ms)
     errs["fused_fs2_planes_multi"] = phase6(gen, ms)
-    fs2_launches, _ = replay_main_path(7, log, config(proposal_mode="fastslam2"), FS2, 0.15)
-    launches.update({k: fs2_launches[k] for k in FS2})
+    paths["fs2_replay"], fs2_ate = replay_main_path(
+        7, log, config(proposal_mode="fastslam2"), FS2, 0.15)
     phase8()
-    times = phase9(gen, ms)
+    batch = replay_icp_batch(log)
+    times, bounds = phase9(gen, ms, batch)
+    errs[ICP] = phase10(batch)
+    paths["adaptive_replay"] = phase11(log, fs2_ate)
+    paths["online"] = phase12(log)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": sum(path[name] for path in paths.values()),
+         "launches_by_path": {k: path[name] for k, path in paths.items()},
+         "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": times[name][2]}
         for name, (src, replaces) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

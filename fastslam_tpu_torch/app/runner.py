@@ -1,19 +1,29 @@
-"""Offline batch replay of a recorded log through the chunked engine.
+"""The control loop and the offline batch replay.
 
-Counterpart of ``RunHistory`` and ``replay_chunked`` of
-``fastslam_tpu/app/runner.py``, with the motion proposal or the FastSLAM 2.0
-one (``proposal_mode="fastslam2"``), without ICP or adaptive floors.  A
-recorded log has no feedback from the estimate to the
-commands, so the frontend runs over every scan first, then the filter takes
-``chunk_size`` ticks per call of the chunked update; the ``T mod chunk_size``
-tail ticks go through the per-tick step.  Odometry pairing, the
-dead-reckoning warmup and the ground-truth frame match the JAX runner.
+Counterpart of ``fastslam_tpu/app/runner.py``:
+
+* :class:`SLAMRunner` and :func:`run_driver`: the online loop, one tick at
+  a time against any :class:`~fastslam_tpu_torch.drivers.base.Driver` —
+  odometry from the previous tick's commands, the optional ICP refinement
+  of that odometry with adaptive proposal floors, the frontend, one filter
+  step (production or parity mode), the dead-reckoning warmup gate and the
+  per-tick evaluation against ground truth.  This is the JAX runner's split
+  path; the port has no fused one-dispatch tick (``config.py``).
+* :func:`replay_chunked`: a recorded log has no feedback from the estimate
+  to the commands, so the frontend runs over every scan first, the ICP
+  matches of the whole log run as one batch (:func:`icp_floor_stage`), then
+  the filter takes ``chunk_size`` ticks per call of the chunked update; the
+  ``T mod chunk_size`` tail ticks go through the per-tick step.
+
+Odometry pairing, the warmup and the ground-truth frame match the JAX
+runner.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,6 +33,8 @@ from fastslam_tpu_torch.core import kernels
 from fastslam_tpu_torch.core.state import Measurements, init_planes_state
 from fastslam_tpu_torch.eval.metrics import TickEvaluation, evaluate_tick, trajectory_metrics
 from fastslam_tpu_torch.frontend.pipeline import scan_to_measurements
+from fastslam_tpu_torch.proposal import adaptive
+from fastslam_tpu_torch.proposal.icp import icp_point_to_line, rotate_points
 
 
 @dataclass
@@ -31,6 +43,18 @@ class RunHistory:
     gt_poses: List[np.ndarray] = field(default_factory=list)
     evaluations: List[TickEvaluation] = field(default_factory=list)
     num_measurements: List[int] = field(default_factory=list)
+    # final (xy, theta) adaptive proposal floors, when the run adapts them
+    # (the floors the last tick's type read; floors are per tick type)
+    final_floors: tuple | None = None
+    # ((fxy, fth) for rotation ticks, (fxy, fth) for translation ticks) at
+    # the end of an online run
+    final_floors_by_type: tuple | None = None
+    # per-tick floor trajectories (batched replay only)
+    floor_traj: tuple | None = None
+    # host-clock seconds of the online loop's stages, summed over its ticks:
+    # "icp_refine" and "tick" (frontend + filter step); each ends in a
+    # device-to-host copy, so no synchronization is added to time them
+    stage_seconds: dict = field(default_factory=dict)
 
     def metrics(self, skip: int = 0) -> dict:
         return trajectory_metrics(
@@ -38,15 +62,335 @@ class RunHistory:
         )
 
 
-def _check_supported(config: FastSLAMConfig) -> None:
-    if config.parity_mode:
-        raise ValueError("replay_chunked runs in production mode "
-                         "(parity_mode=False)")
-    if config.use_icp_proposal or config.adaptive_proposal_floors:
-        raise NotImplementedError(
-            "use_icp_proposal and adaptive_proposal_floors are not ported yet "
-            "(ROADMAP.md: ICP and adaptive proposals)")
+def _not_ported(what: str, where: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {where})")
 
+
+def _check_adaptive(config: FastSLAMConfig) -> None:
+    if config.adaptive_proposal_floors and not (
+        config.use_icp_proposal and config.proposal_mode == "fastslam2"
+    ):
+        raise ValueError(
+            "adaptive_proposal_floors estimates the odometry error from "
+            "the ICP-vs-command residual and feeds it to the fastslam2 "
+            "proposal: requires use_icp_proposal=True and "
+            "proposal_mode='fastslam2'"
+        )
+
+
+def _f32(x, device) -> torch.Tensor:
+    """A host scalar as a 0-d float32 tensor (squared in float32 downstream)."""
+    return torch.tensor(np.float32(x), device=device)
+
+
+class SLAMRunner:
+    """Owns the filter state on ``device``, its random generator and the
+    dead-reckoned robot pose of the online loop."""
+
+    def __init__(self, config: FastSLAMConfig, rng: int = 0, *,
+                 device: torch.device | str = "cuda"):
+        if config.track_corners:
+            raise _not_ported("track_corners (frontend/tracking.py)",
+                              "frontend extras")
+        _check_adaptive(config)
+        self.config = config
+        self.device = torch.device(device)
+        self.state = init_planes_state(config, self.device)
+        self._generator = torch.Generator(device=self.device).manual_seed(rng)
+        self._fs2 = kernels.uses_fs2(config)
+        self.robot = np.zeros(3)  # dead-reckoned pose during warmup
+        self.iteration = 0
+        self._prev_timestamp: Optional[float] = None
+        self._last_num_measurements = 0
+
+        # host-side state of the online odometry-error estimator
+        # (proposal/adaptive.py, shared with the batched replay)
+        self._adaptive_floors = bool(config.adaptive_proposal_floors)
+        self._floor_xy = config.proposal_xy_floor
+        self._floor_th = config.proposal_theta_floor
+        self._blend_xy = 0.0
+        self._blend_th = 0.0
+        self._bias_th = 0.0
+        self._dial = 0.0 if self._adaptive_floors else 1.0
+        self._prev_cmd = (0.0, 0.0)
+        self._prev_se2 = (0.0, 0.0, 0.0)
+        if self._adaptive_floors:
+            self._floor_est = adaptive.OnlineFloorEstimator(config)
+        self._prev_scan = None
+        self._prev2_scan = None
+
+    # ------------------------------------------------------------ odometry
+    def odometry(self, v: float, w: float, timestamp: float) -> tuple:
+        """Control-command odometry (``robot.py:122-151``): mutually exclusive
+        rotation/translation with the 0.6 simulator fudge on translation."""
+        if self._prev_timestamp is None:
+            dt = 0.0
+        else:
+            dt = timestamp - self._prev_timestamp
+        self._prev_timestamp = timestamp
+        if v != 0:
+            return 0.0, v * dt * self.config.velocity_fudge
+        return w * dt, 0.0
+
+    # ---------------------------------------------------------- ICP proposal
+    def _matches(self, cur, jobs):
+        """Warm-started composite SE(2) matches ``src -> cur`` of every
+        ``(src, src_valid, warm_ang, warm_t)`` job, in one batched ICP call.
+
+        The warm start is computed on the host in float64 and cast to
+        float32; rotations are elementwise (proposal/icp.py numerics note)."""
+        pre = []
+        for src, _, warm_ang, warm_t in jobs:
+            ca, sa = np.cos(warm_ang), np.sin(warm_ang)
+            pre.append(np.stack([ca * src[:, 0] - sa * src[:, 1],
+                                 sa * src[:, 0] + ca * src[:, 1]], -1) + warm_t)
+        k = len(jobs)
+        dev = self.device
+        res = icp_point_to_line(
+            torch.from_numpy(np.stack(pre).astype(np.float32)).to(dev),
+            torch.from_numpy(cur[0]).to(dev).expand(k, -1, -1),
+            torch.from_numpy(np.stack([j[1] for j in jobs])).to(dev),
+            torch.from_numpy(cur[1]).to(dev).expand(k, -1),
+            self.config,
+        )
+        out = torch.cat([res.theta[:, None], res.translation], dim=1).cpu().numpy()
+        matches = []
+        for (_, _, warm_ang, warm_t), (th, tx, ty) in zip(jobs, out):
+            th = float(th)
+            ct, st = np.cos(th), np.sin(th)
+            t = np.array([ct * warm_t[0] - st * warm_t[1],
+                          st * warm_t[0] + ct * warm_t[1]]) \
+                + np.array([tx, ty], np.float32)
+            matches.append((warm_ang + th, t))
+        return matches
+
+    def icp_refine(self, points: np.ndarray, valid: np.ndarray,
+                   rotation: float, translation: float, v: float):
+        """Refine the command odometry with an ICP scan match between the
+        previous and current scans, warm-started with the command odometry
+        and converted back under the reference's rotation-XOR-translation
+        convention (translating ticks take the signed along-track estimate).
+        With fixed blending ``icp_blend`` interpolates command and match;
+        with ``adaptive_proposal_floors`` the shared
+        :class:`~fastslam_tpu_torch.proposal.adaptive.OnlineFloorEstimator`
+        drives the blends, the proposal floors and the mode dial, read for
+        this tick BEFORE its own residual is pushed.
+
+        The single-step match and (adaptive floors) the direct two-step match
+        scan(t-2) -> scan(t) share one batched ICP call."""
+        cur = (np.asarray(points, np.float32), np.asarray(valid, bool))
+        prev = self._prev_scan
+        prev2 = self._prev2_scan
+        self._prev2_scan = prev
+        self._prev_scan = cur
+        if prev is None:
+            self._prev_cmd = (float(rotation), float(translation))
+            if self._adaptive_floors:
+                # first tick: no residual yet, but the step reads this tick
+                # type's floors and dial from the estimator's prior
+                k = int(v != 0)
+                fxy, fth, a_xy, a_th, dial, d0 = self._floor_est.read(k)
+                self._floor_xy, self._floor_th = fxy, fth
+                self._blend_xy = a_xy
+                self._blend_th = a_th
+                self._bias_th = d0["b_th"]
+                self._dial = dial
+            return rotation, translation
+
+        jobs = [(prev[0], prev[1], -rotation,
+                 np.array([-translation, 0.0], np.float32))]
+        two_step = self._adaptive_floors and prev2 is not None
+        if two_step:
+            rot_prev, trans_prev = self._prev_cmd
+            cp, sp = np.cos(-rotation), np.sin(-rotation)
+            warm2_t = np.array([cp * -trans_prev, sp * -trans_prev], np.float32) \
+                + np.array([-translation, 0.0], np.float32)
+            jobs.append((prev2[0], prev2[1], -(rot_prev + rotation), warm2_t))
+        matches = self._matches(cur, jobs)
+        ang, t_comp = matches[0]
+        if v != 0:
+            # signed along-track estimate: a perfect match gives
+            # t_comp = (-trans, 0), so -t_comp[0] keeps the sign of a
+            # slip-corrupted negative command
+            icp_rot, icp_trans = 0.0, float(-t_comp[0])
+        else:
+            icp_rot, icp_trans = float(-ang), 0.0
+
+        if self._adaptive_floors:
+            k = int(v != 0)
+            sr, al, la = adaptive.se2_residuals(
+                np.array([ang], np.float32),
+                np.array([t_comp], np.float32),
+                np.array([0.0, rotation], np.float32),
+                np.array([0.0, translation], np.float32),
+            )
+            kw = dict(sr_th=float(sr[1]), sr_al=float(al[1]), lat=float(la[1]))
+            if two_step:
+                dir_ang, dir_t = matches[1]
+                pa, pt = self._prev_se2[0], self._prev_se2[1:]
+                d_ang, d_t2 = adaptive.consistency_discrepancy(
+                    np.array([pa, ang], np.float32),
+                    np.array([pt, t_comp], np.float32),
+                    np.array([dir_ang], np.float32),
+                    np.array([dir_t], np.float32),
+                )
+                kw.update(d_ang=float(d_ang[0]), d_t2=float(d_t2[0]))
+            self._prev_se2 = (ang, float(t_comp[0]), float(t_comp[1]))
+            self._prev_cmd = (float(rotation), float(translation))
+            # floors, blends and dial of THIS tick, read before its residual
+            # is pushed (residuals through t-1, this tick's own type)
+            fxy, fth, a_xy, a_th, dial, diag = self._floor_est.read(k)
+            a_t = a_xy
+            # the rotation blend is gated and uses the debiased match
+            a_r = a_th
+            if a_r and v == 0:
+                icp_rot -= diag["b_th"]
+            # match-failure gate: the lateral residual is pure matcher
+            # error, so a failed match falls back to the command this tick
+            if abs(float(t_comp[1])) > diag["lat_gate"]:
+                a_t = a_r = 0.0
+            self._floor_est.push(k, **kw)
+            self._floor_xy, self._floor_th = fxy, fth
+            self._blend_xy = a_xy
+            self._blend_th = a_th
+            self._bias_th = diag["b_th"]
+            self._dial = dial
+        else:
+            self._prev_cmd = (float(rotation), float(translation))
+            a_r = a_t = self.config.icp_blend
+        return (
+            (1.0 - a_r) * rotation + a_r * icp_rot,
+            (1.0 - a_t) * translation + a_t * icp_trans,
+        )
+
+    # ------------------------------------------------------------- one tick
+    def tick(self, points: np.ndarray, valid: np.ndarray, rotation: float,
+             translation: float) -> np.ndarray:
+        """Run perception and one filter step; returns the pose estimate the
+        application should adopt (respecting the warmup gate)."""
+        dev = self.device
+        ms = scan_to_measurements(
+            torch.from_numpy(np.asarray(points, np.float32)).to(dev),
+            torch.from_numpy(np.asarray(valid, bool)).to(dev), self.config)
+        draws = kernels.draw(self._generator, self.config.num_particles, fs2=self._fs2)
+        extra = {}
+        if self._adaptive_floors:
+            extra = dict(proposal_floors=(_f32(self._floor_xy, dev),
+                                          _f32(self._floor_th, dev)),
+                         evidence_scale=_f32(self._dial, dev))
+        self.state, est = kernels.fastslam_step_planes(
+            self.state, rotation, translation, ms, self.config, draws, **extra)
+        out = torch.cat([est, ms.valid.sum().to(est.dtype)[None]]).cpu().numpy()
+        self._last_num_measurements = int(out[3])
+
+        if self.iteration < self.config.warmup_iterations:
+            # dead-reckon (jde_robots_main.py:41-49)
+            self.robot[2] = (self.robot[2] + rotation + np.pi) % (2 * np.pi) - np.pi
+            self.robot[0] += translation * np.cos(self.robot[2])
+            self.robot[1] += translation * np.sin(self.robot[2])
+            self.iteration += 1
+        else:
+            self.robot = out[:3].astype(float).copy()
+        return self.robot.copy()
+
+
+def run_driver(
+    driver,
+    config: FastSLAMConfig,
+    max_ticks: int = 10_000,
+    rng: int = 0,
+    *,
+    device: torch.device | str = "cuda",
+    serialize_path: Optional[str] = None,
+    metrics_path: Optional[str] = None,
+    checkpoint_path: Optional[str] = None,
+    health: bool = False,
+    odometry_noise: tuple = (0.0, 0.0),
+    odometry_noise_seed: int = 123,
+) -> RunHistory:
+    """Drive the online loop against any driver until it is exhausted.
+
+    ``odometry_noise`` = (rotation, translation) std-devs of wheel slip added
+    to what the filter sees, one draw per active component tick; ground truth
+    is unaffected.  The JAX runner's production hooks (viewer snapshots,
+    metrics log, checkpoints, health monitoring) are not ported yet.
+    """
+    hooks = {"serialize_path": serialize_path, "metrics_path": metrics_path,
+             "checkpoint_path": checkpoint_path, "health": health}
+    asked = sorted(k for k, v in hooks.items() if v)
+    if asked:
+        raise _not_ported(f"run_driver's {', '.join(asked)}", "IO and hooks")
+    runner = SLAMRunner(config, rng, device=device)
+    history = RunHistory()
+    odo_rng = np.random.default_rng(odometry_noise_seed)
+
+    # the filter's world frame is the robot's start pose: ground truth maps
+    # through the full SE(2) inverse of the start pose
+    p0 = driver.get_pose()
+    off = np.array([p0.x, p0.y, p0.yaw])
+    c0, s0 = np.cos(-off[2]), np.sin(-off[2])
+
+    running = True
+    ticks = 0
+    prev_cmd = (0.0, 0.0)
+    spent = history.stage_seconds
+    spent.update(icp_refine=0.0, tick=0.0)
+    while running and ticks < max_ticks:
+        scan = driver.get_laser()
+        points, valid = scan.to_points()
+
+        if hasattr(driver, "commanded_velocity"):
+            cur_cmd = driver.commanded_velocity()
+        else:  # live policy (robot.py:61-88)
+            bumper = driver.get_bumper()
+            if bumper.state == 1:
+                cur_cmd = (0.0, config.angular_velocity if bumper.bumper == 0
+                           else -config.angular_velocity)
+            else:
+                cur_cmd = (config.linear_velocity, 0.0)
+            driver.set_velocity(*cur_cmd)
+
+        # the scan at tick t reflects motion driven by tick t-1's commands
+        v, w = prev_cmd
+        prev_cmd = cur_cmd
+        rotation, translation = runner.odometry(v, w, scan.timestamp)
+        if odometry_noise != (0.0, 0.0):
+            if rotation != 0.0:
+                rotation += odo_rng.normal(0.0, odometry_noise[0])
+            if translation != 0.0:
+                translation += odo_rng.normal(0.0, odometry_noise[1])
+        t0 = time.perf_counter()
+        if config.use_icp_proposal:
+            rotation, translation = runner.icp_refine(points, valid, rotation,
+                                                      translation, v)
+        t1 = time.perf_counter()
+        est = runner.tick(points, valid, rotation, translation)
+        spent["icp_refine"] += t1 - t0
+        spent["tick"] += time.perf_counter() - t1
+
+        gp = driver.get_pose()
+        dx, dy = gp.x - off[0], gp.y - off[1]
+        gt = np.array([c0 * dx - s0 * dy, s0 * dx + c0 * dy,
+                       (gp.yaw - off[2] + np.pi) % (2 * np.pi) - np.pi])
+        history.est_poses.append(est)
+        history.gt_poses.append(gt)
+        history.evaluations.append(evaluate_tick(gt, est))
+        history.num_measurements.append(runner._last_num_measurements)
+
+        running = driver.step()
+        ticks += 1
+
+    if runner._adaptive_floors:
+        history.final_floors = (runner._floor_xy, runner._floor_th)
+        r0 = runner._floor_est.read(0)
+        r1 = runner._floor_est.read(1)
+        history.final_floors_by_type = ((r0[0], r0[1]), (r1[0], r1[1]))
+    return history
+
+
+# ---------------------------------------------------------------------------
+# offline batch replay
+# ---------------------------------------------------------------------------
 
 def scan_points(log):
     """Polar scans ``[T, B]`` -> robot-frame points ``[T, B, 2]`` and validity."""
@@ -80,17 +424,123 @@ def odometry(log, config: FastSLAMConfig):
     return rots, trans
 
 
+class ICPOdometry(NamedTuple):
+    """What the batched ICP stage hands the filter, per tick of the log."""
+
+    rots: np.ndarray                  # [T] float32 blended rotation odometry
+    trans: np.ndarray                 # [T] float32 blended translation odometry
+    floors_xy: Optional[np.ndarray]   # [T] adaptive xy floors, None if fixed
+    floors_th: Optional[np.ndarray]   # [T] adaptive theta floors
+    dial: Optional[np.ndarray]        # [T] fs2 mode dial
+
+
+def icp_stage_pairs(pts: torch.Tensor, valid: torch.Tensor, rots: np.ndarray,
+                    trans: np.ndarray, two_step: bool):
+    """The cloud pairs of the batched ICP stage, warm-started with the
+    command odometry: the T-1 single-step pairs scan(t-1) -> scan(t), then
+    (``two_step``) the T-2 direct pairs scan(t-2) -> scan(t).
+
+    Returns ``(pre [B, N, 2], target [B, N, 2], source_valid [B, N],
+    target_valid [B, N], warm_ang [B], warm_t [B, 2])``: ``pre`` is the
+    source moved by the warm start ``(warm_ang, warm_t)``, rotated
+    elementwise."""
+    dev = pts.device
+    rots_d = torch.from_numpy(rots).to(dev)
+    trans_d = torch.from_numpy(trans).to(dev)
+    zeros = torch.zeros(len(rots), dtype=torch.float32, device=dev)
+    srcs, tgts, svs, tvs = [pts[:-1]], [pts[1:]], [valid[:-1]], [valid[1:]]
+    warm_ang = [-rots_d[1:]]
+    warm_t = [torch.stack([-trans_d[1:], zeros[1:]], dim=-1)]
+    if two_step:
+        # the direct two-step match calibrates the matcher's own noise: the
+        # true motion cancels against the composition of the two single steps
+        srcs.append(pts[:-2])
+        tgts.append(pts[2:])
+        svs.append(valid[:-2])
+        tvs.append(valid[2:])
+        warm_ang.append(-(rots_d[1:-1] + rots_d[2:]))
+        warm_t.append(rotate_points(torch.stack([-trans_d[1:-1], zeros[2:]], dim=-1),
+                                    -rots_d[2:])
+                      + torch.stack([-trans_d[2:], zeros[2:]], dim=-1))
+    src, warm_ang, warm_t = torch.cat(srcs), torch.cat(warm_ang), torch.cat(warm_t)
+    pre = rotate_points(src, warm_ang[:, None]) + warm_t[:, None, :]
+    return pre, torch.cat(tgts), torch.cat(svs), torch.cat(tvs), warm_ang, warm_t
+
+
+def icp_floor_stage(pts: torch.Tensor, valid: torch.Tensor, rots: np.ndarray,
+                    trans: np.ndarray, v_active: np.ndarray,
+                    config: FastSLAMConfig) -> ICPOdometry:
+    """The ICP refinement of a whole log's odometry, and its adaptive floors.
+
+    ``pts [T, B, 2]`` and ``valid [T, B]`` on the device; ``rots``/``trans``
+    the command odometry the filter would see (slip included), ``v_active``
+    whether each tick translates.  The warm start uses the command odometry,
+    never the filter estimate, so all T-1 single-step matches (and with
+    adaptive floors the T-2 direct two-step matches) run as one batched ICP
+    call in float32 on the device (:func:`icp_stage_pairs`).  The floor
+    schedule is a host recurrence over the residuals; the debias, the
+    match-failure gate ``|lat| > lat_gate`` and the blends follow the JAX
+    replay exactly.
+    """
+    t_total = len(rots)
+    floors_on = config.adaptive_proposal_floors
+    two_step = floors_on and t_total >= 3
+    pre, tgt, sv, tv, warm_ang, warm_t = icp_stage_pairs(pts, valid, rots, trans,
+                                                         two_step)
+    res = icp_point_to_line(pre, tgt, sv, tv, config)
+    # composite SE(2) of each match: angle addition, elementwise rotation
+    ang = (warm_ang + res.theta).cpu().numpy()
+    t_comp = (rotate_points(warm_t, res.theta) + res.translation).cpu().numpy()
+    angs, tvecs = ang[:t_total - 1], t_comp[:t_total - 1]
+    va = v_active[1:]
+    # signed along-track estimate on translation ticks
+    icp_rots = np.concatenate([[0.0], np.where(va, 0.0, -angs).astype(np.float32)])
+    icp_trs = np.concatenate([[0.0], np.where(va, -tvecs[:, 0], 0.0).astype(np.float32)])
+
+    floors_xy = floors_th = dial = None
+    if floors_on:
+        d_ang = d_t2 = None
+        if two_step:
+            d_ang, d_t2 = adaptive.consistency_discrepancy(
+                angs, tvecs, ang[t_total - 1:], t_comp[t_total - 1:])
+        sr_th, sr_al, lat = adaptive.se2_residuals(angs, tvecs, rots, trans)
+        sched = adaptive.floor_schedule(sr_th, sr_al, lat, d_ang, d_t2, v_active,
+                                        config)
+        floors_xy, floors_th, dial = sched.floors_xy, sched.floors_th, sched.dial
+        a_r, a_t = sched.blend_th, sched.blend_xy
+        # the rotation blend is gated and consumes the debiased match
+        icp_rots = np.where(v_active, icp_rots,
+                            icp_rots - sched.bias_th).astype(np.float32)
+        # match-failure gate: zero this tick's blends on a failed match
+        bad = np.abs(lat) > sched.lat_gate
+        a_r = np.where(bad, 0.0, a_r).astype(np.float32)
+        a_t = np.where(bad, 0.0, a_t).astype(np.float32)
+    else:
+        a_r = a_t = np.full(t_total, config.icp_blend, np.float32)
+    blend = np.arange(t_total) > 0  # tick 0 has no previous scan
+    rots = np.where(blend, (1 - a_r) * rots + a_r * icp_rots, rots).astype(np.float32)
+    trans = np.where(blend, (1 - a_t) * trans + a_t * icp_trs, trans).astype(np.float32)
+    return ICPOdometry(rots, trans, floors_xy, floors_th, dial)
+
+
 def replay_chunked(log, config: FastSLAMConfig, chunk_size: int = 8,
                    rng: int = 0, *, device: torch.device | str = "cuda",
                    odometry_noise: tuple = (0.0, 0.0),
                    odometry_noise_seed: int = 123) -> RunHistory:
-    """Replay ``log`` through the chunked engine on ``device``.
+    """Replay ``log`` through the chunked engine on ``device`` (production
+    mode), with the motion or the FastSLAM 2.0 proposal, and optionally the
+    ICP refinement of the odometry (``use_icp_proposal``) with adaptive
+    floors and mode dial (``adaptive_proposal_floors``), whose per-tick
+    ``[C]`` rows feed the fs2 prior of each chunk.
 
     ``rng`` seeds the :class:`torch.Generator` of the filter's draws.
     ``odometry_noise`` = (rotation, translation) std-devs of wheel slip added
-    to what the filter sees, one draw per active component tick.
+    to what the filter sees, one draw per active component tick, before the
+    ICP refinement, so the scan match must recover it.
     """
-    _check_supported(config)
+    if config.parity_mode:
+        raise ValueError("replay_chunked runs in production mode "
+                         "(parity_mode=False)")
     device = torch.device(device)
     t_total = len(log)
     c = chunk_size
@@ -103,6 +553,7 @@ def replay_chunked(log, config: FastSLAMConfig, chunk_size: int = 8,
     mv = torch.stack([m.valid for m in ms])                  # [T, M]
 
     rots, trans = odometry(log, config)
+    v_active = np.concatenate([[False], np.asarray(log.cmd_v[:-1], np.float64) != 0])
     if odometry_noise != (0.0, 0.0):
         odo_rng = np.random.default_rng(odometry_noise_seed)
         for t in range(t_total):
@@ -110,8 +561,22 @@ def replay_chunked(log, config: FastSLAMConfig, chunk_size: int = 8,
                 rots[t] += odo_rng.normal(0.0, odometry_noise[0])
             if trans[t] != 0.0:
                 trans[t] += odo_rng.normal(0.0, odometry_noise[1])
+
+    floors = None
+    if config.use_icp_proposal:
+        stage = icp_floor_stage(pts_d, valid_d, rots, trans, v_active, config)
+        rots, trans = stage.rots, stage.trans
+        if stage.floors_xy is not None:
+            floors = [torch.from_numpy(a).to(device)
+                      for a in (stage.floors_xy, stage.floors_th, stage.dial)]
     rots_d = torch.from_numpy(rots).to(device)
     trans_d = torch.from_numpy(trans).to(device)
+
+    def extra(sl):
+        if floors is None:
+            return {}
+        fxy, fth, dial = (f[sl] for f in floors)
+        return dict(proposal_floors=(fxy, fth), evidence_scale=dial)
 
     generator = torch.Generator(device=device).manual_seed(rng)
     state = init_planes_state(config, device)
@@ -123,12 +588,12 @@ def replay_chunked(log, config: FastSLAMConfig, chunk_size: int = 8,
         sl = slice(i * c, (i + 1) * c)
         state, est[sl] = kernels.fastslam_steps_planes_chunked(
             state, rots_d[sl], trans_d[sl], Measurements(rb[sl], mv[sl]),
-            config, kernels.draw(generator, p, c, fs2=fs2),
+            config, kernels.draw(generator, p, c, fs2=fs2), **extra(sl),
         )
     for t in range(n_chunks * c, t_total):
         state, est[t] = kernels.fastslam_step_planes(
             state, rots_d[t], trans_d[t], Measurements(rb[t], mv[t]), config,
-            kernels.draw(generator, p, fs2=fs2),
+            kernels.draw(generator, p, fs2=fs2), **extra(t),
         )
     est = est.cpu().numpy()
 
@@ -154,6 +619,9 @@ def replay_chunked(log, config: FastSLAMConfig, chunk_size: int = 8,
     history.est_poses = [e for e in est]
     history.gt_poses = [g for g in gt]
     history.num_measurements = [int(x) for x in mv.sum(dim=1).tolist()]
+    if floors is not None:
+        history.final_floors = (float(stage.floors_xy[-1]), float(stage.floors_th[-1]))
+        history.floor_traj = (stage.floors_xy.copy(), stage.floors_th.copy())
     for e, g in zip(est, gt):
         history.evaluations.append(evaluate_tick(g, e))
     return history

@@ -7,6 +7,12 @@ out: ``use_pallas``, ``pallas_interpret`` and ``engine`` (here the device of
 the tensors decides which path runs, and the port always carries the planes
 layout) and the retired ``fs2_reuse_association`` lever.
 
+``fuse_online_tick`` is kept for the carry-over but read by nothing: the
+JAX runner fuses the whole online tick into one dispatch for a remote TPU,
+a dispatch fusion of the same semantics; the port's online tick is always
+the split path (``app/runner.py:SLAMRunner``: ICP refinement, frontend,
+filter step).
+
 The capacity fields (``max_landmarks``, ``max_measurements``,
 ``max_hough_lines`` ...) turn every ragged structure of the algorithm into a
 fixed-capacity masked tensor, as in the JAX package.
@@ -81,7 +87,7 @@ class FastSLAMConfig:
     viz_cluster_eps: float = 0.5
     viz_min_samples_frac: float = 0.7
 
-    # ---- ICP and FastSLAM 2.0 proposals (not ported yet: ROADMAP.md) ----
+    # ---- ICP and FastSLAM 2.0 proposals, adaptive floors ----
     icp_max_iterations: int = 100
     icp_tolerance: float = 1e-5
     use_icp_proposal: bool = False
@@ -107,7 +113,7 @@ class FastSLAMConfig:
     fs2_evidence_weights: bool = False
 
     # ---- motion / app loop ----
-    fuse_online_tick: bool = True
+    fuse_online_tick: bool = True         # read by nothing (see above)
     velocity_fudge: float = 0.6           # the simulator absorbs 40% of v
     warmup_iterations: int = 150          # dead-reckoning warmup ticks
     linear_velocity: float = 0.3          # drive policy commands

@@ -9,11 +9,14 @@ Counterpart of ``fastslam_tpu/core/pallas_kernels.py``:
 * the FastSLAM 2.0 proposal: one tick (:func:`fused_fs2_planes`) or C ticks
   with in-kernel mean-motion prediction (:func:`fused_fs2_planes_multi`) of
   proposal accumulation at the predicted pose, pose solve and sample, and
-  the landmark EKF at the sampled pose (``csrc/fused_fs2.cu``).
+  the landmark EKF at the sampled pose (``csrc/fused_fs2.cu``);
+* the nearest-neighbour step of ICP (:func:`icp_correspondences`,
+  ``csrc/icp_nn.cu``): for each source point of a batch of cloud pairs, the
+  closest valid target point.
 
-The kernels run one thread per particle and share their per-measurement
-device code (``csrc/measurement.cuh``); ``core/_build.py`` compiles and
-loads them.
+The filter kernels run one thread per particle and share their
+per-measurement device code (``csrc/measurement.cuh``); the ICP kernel runs
+one thread per source point.  ``core/_build.py`` compiles and loads them.
 
 Each wrapper dispatches on the device of the tensors it is given:
 
@@ -21,9 +24,9 @@ Each wrapper dispatches on the device of the tensors it is given:
 * CPU tensors run the plain version (``*_ref``), which mirrors the kernel
   operation for operation on ``[L, P]`` tensors.
 
-All four update the landmark planes and ``lm_count`` in place (each
-particle owns its column, so a kernel needs no second buffer); the per-tick
-wrappers also update ``log_weights`` in place.  Callers that need the inputs
+The four filter kernels update the landmark planes and ``lm_count`` in
+place (each particle owns its column, so a kernel needs no second buffer);
+the per-tick wrappers also update ``log_weights`` in place.  Callers that need the inputs
 afterwards pass clones.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that it
@@ -42,7 +45,8 @@ import torch
 from fastslam_tpu_torch.config import FastSLAMConfig
 
 LAUNCHES = {"fused_update_planes": 0, "fused_update_planes_multi": 0,
-            "fused_fs2_planes": 0, "fused_fs2_planes_multi": 0}
+            "fused_fs2_planes": 0, "fused_fs2_planes_multi": 0,
+            "icp_correspondences": 0}
 
 _LOG_TWO_PI = math.log(2.0 * math.pi)
 _PI = math.pi
@@ -654,8 +658,45 @@ def fused_fs2_planes_multi_ref(poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb,
 
 
 # ---------------------------------------------------------------------------
+# plain version: ICP nearest neighbours
+# ---------------------------------------------------------------------------
+
+def icp_correspondences_ref(source, target, target_valid):
+    """Plain PyTorch version of :func:`icp_correspondences` (same contract):
+    the dense ``[..., N, Mt]`` squared distances, ``inf`` on invalid
+    targets, the first index at the minimum and the square root of it."""
+    _check_nn_inputs(source, target, target_valid)
+    diff = source[..., :, None, :] - target[..., None, :, :]
+    d2 = torch.sum(diff * diff, dim=-1)
+    d2 = torch.where(target_valid[..., None, :], d2, torch.inf)
+    idx = torch.argmin(d2, dim=-1, keepdim=True)   # first of equal minima
+    dist = torch.sqrt(torch.gather(d2, -1, idx))[..., 0]
+    return dist, idx[..., 0].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # checks and launch parameters
 # ---------------------------------------------------------------------------
+
+def _check_nn_inputs(source, target, target_valid):
+    if source.dim() not in (2, 3) or source.shape[-1] != 2:
+        raise ValueError(f"source must be [N, 2] or [B, N, 2], got {tuple(source.shape)}")
+    batch = tuple(source.shape[:-2])
+    if target.dim() != source.dim() or target.shape[-1] != 2 \
+            or tuple(target.shape[:-2]) != batch:
+        raise ValueError(f"target must be [{', '.join(map(str, batch + ('Mt', 2)))}], "
+                         f"got {tuple(target.shape)}")
+    if tuple(target_valid.shape) != tuple(target.shape[:-1]) \
+            or target_valid.dtype != torch.bool:
+        raise ValueError("target_valid must be bool of the target's leading shape")
+    device = source.device
+    for t in (source, target):
+        if t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"source and target must be float32 on {device}, "
+                             f"got {t.dtype} on {t.device}")
+    if target_valid.device != device:
+        raise ValueError(f"target_valid must lie on {device}")
+
 
 def _check_inputs(poses, log_weights, planes, lm_count, z, z_valid,
                   config: FastSLAMConfig):
@@ -984,3 +1025,36 @@ def fused_fs2_planes_multi(poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb,
     LAUNCHES["fused_fs2_planes_multi"] += 1
     return (traj[0], traj[1], traj[2], traj[3], lm_mx, lm_my, lm_ca, lm_cb, None,
             lm_cd, lm_count)
+
+
+def icp_correspondences(source, target, target_valid):
+    """Nearest valid target point of every source point (ICP correspondences).
+
+    Args:
+      source ``[N, 2]`` or ``[B, N, 2]`` float32; target ``[Mt, 2]`` or
+      ``[B, Mt, 2]`` float32; target_valid ``[Mt]`` or ``[B, Mt]`` bool.  With
+      a leading batch axis each source cloud is matched against the target
+      cloud of the same pair.
+
+    Returns ``(dist, idx)``, each ``[N]`` or ``[B, N]``: the Euclidean
+    distance (float32) and index (int32) of the closest valid target; the
+    first index on ties; ``(inf, 0)`` when no target is valid.
+    """
+    if source.device.type == "cpu":
+        return icp_correspondences_ref(source, target, target_valid)
+    _check_nn_inputs(source, target, target_valid)
+    device = _require_cuda(source, target, target_valid)
+    from fastslam_tpu_torch.core import _build
+
+    n, mt = source.shape[-2], target.shape[-2]
+    b = source.shape[0] if source.dim() == 3 else 1
+    batch = tuple(source.shape[:-2])
+    dist = torch.empty(batch + (n,), dtype=torch.float32, device=device)
+    idx = torch.empty(batch + (n,), dtype=torch.int32, device=device)
+    _launch(
+        _build.load().icp_correspondences_launch, device,
+        _ptr(source), _ptr(target), _ptr(target_valid), _ptr(dist), _ptr(idx),
+        ctypes.c_int(b), ctypes.c_int(n), ctypes.c_int(mt),
+    )
+    LAUNCHES["icp_correspondences"] += 1
+    return dist, idx

@@ -36,7 +36,8 @@ def test_library_key_follows_every_csrc_file(tmp_path):
         assert _build.source_digest(csrc) == base
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.source_digest(csrc) != base
-    assert [p.name for p in _build.sources(csrc)] == ["fused_fs2.cu", "fused_update.cu"]
+    assert [p.name for p in _build.sources(csrc)] == ["fused_fs2.cu", "fused_update.cu",
+                                                      "icp_nn.cu"]
     assert _build.source_digest(_build.CSRC) in _build.library_path().name
 
 
@@ -79,6 +80,8 @@ def wrapper_calls(cfg):
         "fused_fs2_planes_multi": lambda: cuda_kernels.fused_fs2_planes_multi(
             meta(P, 3), *state, *chunk, meta(C, 3, P), meta(C), meta(C), meta(C),
             meta(C), 1e-4, cfg),
+        "icp_correspondences": lambda: cuda_kernels.icp_correspondences(
+            meta(C, P, 2), meta(C, M, 2), meta(C, M, dtype=torch.bool)),
     }
 
 

@@ -215,7 +215,8 @@ def test_fs2_replay_runs_through_the_fs2_kernels(device):
     hist = replay_chunked(small_log(), cfg, chunk_size=8, device=device)
     delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
     assert delta == {"fused_update_planes": 0, "fused_update_planes_multi": 0,
-                     "fused_fs2_planes": 4, "fused_fs2_planes_multi": 6}
+                     "fused_fs2_planes": 4, "fused_fs2_planes_multi": 6,
+                     "icp_correspondences": 0}
     assert np.isfinite(np.asarray(hist.est_poses)).all()
     assert hist.metrics()["ate_rmse_m"] < 0.25
 
@@ -253,3 +254,53 @@ def test_resample_cumsum_is_the_same_on_every_run_and_on_the_cpu(device):
     on_cpu = kernels.fixed_order_cumsum(w)
     for _ in range(4):
         assert torch.equal(kernels.fixed_order_cumsum(w.to(device)).cpu(), on_cpu)
+
+
+@pytest.mark.parametrize("b,n,mt", [(37, 180, 180), (3, 300, 2500), (1, 5, 1),
+                                    (70_000, 4, 6), (2, 65_535 * 128 + 200, 3)])
+def test_icp_kernel_matches_plain(device, b, n, mt):
+    """Batched pairs, ragged source tiles, targets across several shared-memory
+    tiles, duplicate targets (ties) and one all-invalid target cloud: indices
+    equal and distances bit for bit.  Also more pairs, and more source tiles
+    of one cloud, than a grid dimension of 65535 blocks holds, in one launch."""
+    gen = torch.Generator(device=device).manual_seed(b)
+    src = torch.randn((b, n, 2), generator=gen, device=device) * 3.0
+    tgt = torch.randn((b, mt, 2), generator=gen, device=device) * 3.0
+    valid = torch.rand((b, mt), generator=gen, device=device) < 0.8
+    if mt > 1:
+        tgt[:, mt // 2:mt // 2 + mt // 4] = tgt[:, :mt // 4]   # ties
+        src[:, 0] = tgt[:, 0]                                  # distance 0
+    valid[b // 2] = False                                      # no valid target
+    before = cuda_kernels.LAUNCHES["icp_correspondences"]
+    got = cuda_kernels.icp_correspondences(src, tgt, valid)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["icp_correspondences"] == before + 1
+    want = cuda_kernels.icp_correspondences_ref(src, tgt, valid)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    assert bool(torch.isinf(got[0][b // 2]).all()) and bool((got[1][b // 2] == 0).all())
+
+
+def test_icp_and_adaptive_paths_run_through_the_kernels(device):
+    from fastslam_tpu_torch.app.runner import replay_chunked, run_driver
+    from fastslam_tpu_torch.drivers.replay import ReplayDriver
+
+    cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, parity_mode=False,
+                         proposal_mode="fastslam2", use_icp_proposal=True,
+                         adaptive_proposal_floors=True, icp_blend=0.0,
+                         warmup_iterations=8)
+    log = small_log()
+    before = dict(cuda_kernels.LAUNCHES)
+    runs = [replay_chunked(log, cfg, chunk_size=8, device=device) for _ in range(2)]
+    delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert delta["fused_fs2_planes_multi"] == 12 and delta["fused_fs2_planes"] == 8
+    assert delta["icp_correspondences"] > 0
+    a, b = (np.asarray(h.est_poses) for h in runs)
+    np.testing.assert_array_equal(a, b)
+    assert runs[0].metrics()["ate_rmse_m"] < 0.25
+    before = dict(cuda_kernels.LAUNCHES)
+    hist = run_driver(ReplayDriver(small_log(24)), cfg, device=device)
+    delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert delta["fused_fs2_planes"] == 24 and delta["fused_fs2_planes_multi"] == 0
+    assert delta["icp_correspondences"] > 0
+    assert np.isfinite(np.asarray(hist.est_poses)).all()
