@@ -49,7 +49,27 @@ Phases, one line each (or more):
     L=64, fs2 + ICP + adaptive floors, 300 ticks; 300 per-tick fs2 launches,
     no chunked one, ICP launches, ATE under 0.05 m, a second run bit for
     bit, and the wall time per tick with its host-clock split (ICP
-    refinement, frontend + step) as ``run_driver`` records it.
+    refinement, frontend + step) as ``run_driver`` records it;
+13. the ring halo exchange kernel against its plain version: S in {1, 2, 4,
+    8} shards of P=100,000 particles at L=64 (blocks of 389 floats per
+    particle) and a ragged case (12,501 particles per shard at S=8); equal
+    exactly;
+14. the distributed resamplers at S=4, P=100,000, L=64: the ring resampler
+    (through the exchange kernel, one launch per call) and the halo
+    resampler against ``resample_state`` on the gathered state, healthy
+    weights and weights collapsed onto the last shard (the fallback); every
+    field bit for bit;
+15. the sharded main path: the dry run of ``parallel/dryrun.py`` on 4 shards
+    of the card at P=100,000, L=64, M=16, C=16 (the blocks step: motion
+    parity, motion production with the halo resampler, fs2; the planes step:
+    motion, fs2; the chunked step: motion, fs2, fs2 with the adaptive floors
+    0.002 and the dial [1, .5, 0, ...]; 3 ticks or 1 chunk each, and the
+    forced resamples); 4 launches per tick or chunk of the kernel each step
+    names; each step bit for bit the same at S=1 and on the single-device
+    step;
+16. the exchange kernel's time (CUDA events) beside its plain version, two
+    ``torch.roll`` calls of the stacked blocks and its bound, and the
+    sharded chunked steps' ms per tick at S=4 beside S=1.
 
 Any failure raises.  The line before the last is a JSON summary of the
 kernels (launches of each main path's first run and their sum; the bound
@@ -82,10 +102,14 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                                "fastslam_tpu/core/pallas_kernels.py:1735"),
     "icp_correspondences": ("fastslam_tpu_torch/csrc/icp_nn.cu",
                             "fastslam_tpu/core/pallas_kernels.py:1901"),
+    "ring_halo_exchange": ("fastslam_tpu_torch/csrc/ring_halo.cu",
+                           "fastslam_tpu/parallel/ring_resample.py:106"),
 }
 MOTION = ("fused_update_planes", "fused_update_planes_multi")
 FS2 = ("fused_fs2_planes", "fused_fs2_planes_multi")
 ICP = "icp_correspondences"
+RING = "ring_halo_exchange"
+SHARDS = 4           # shards of the sharded main path, all on the one card
 ADAPTIVE_C = 8       # the chunk of the adaptive replay (EVAL.md:55 geometry)
 SLIP = (0.02, 0.02)  # wheel slip (rotation, translation std-devs)
 
@@ -136,9 +160,10 @@ def ptxas_summary(report: str):
         if entry:
             m = re.search(r"(fused_(?:update|fs2)_planes(?:_multi)?_kernel)I((?:Lb[01]E)+)",
                           entry.group(1))
+            plain = next((k for k in ("icp_nn_kernel", "ring_halo_kernel")
+                          if k in entry.group(1)), entry.group(1))
             name = (f"{m.group(1)}<{','.join(re.findall('Lb([01])E', m.group(2)))}>"
-                    if m else "icp_nn_kernel" if "icp_nn_kernel" in entry.group(1)
-                    else entry.group(1))
+                    if m else plain)
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill and name:
             out.append([name, None, int(spill.group(1))])
@@ -875,6 +900,155 @@ def phase12(log):
     return launches
 
 
+def ring_blocks(s, p_local, gen):
+    """S packed particle blocks ``[p_local, 3 + 1 + 6L + 1]`` on the card."""
+    import torch
+
+    return [torch.randn((p_local, 3 + 1 + 6 * L + 1), generator=gen, device=DEVICE)
+            for _ in range(s)]
+
+
+def phase13(gen):
+    """The exchange kernel against its plain version: exact equality."""
+    import torch
+
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    worst = 0.0
+    for s, p_local in ((1, P), (2, P // 2), (4, P // 4), (8, P // 8), (8, 12_501)):
+        blocks = ring_blocks(s, p_local, gen)
+        got = cuda_kernels.ring_halo_exchange(blocks)
+        torch.cuda.synchronize()
+        want = cuda_kernels.ring_halo_exchange_ref(blocks)
+        err = max(float((g - w).abs().max()) for g, w in zip(got[0] + got[1], want[0] + want[1]))
+        if err or not all(torch.equal(g, w) for g, w in zip(got[0] + got[1], want[0] + want[1])):
+            raise AssertionError(f"ring exchange S={s} P_local={p_local}: max abs err {err}")
+        worst = max(worst, err)
+        n = blocks[0].numel()
+        phase(13, f"ring exchange S={s}, {p_local} particles x {blocks[0].shape[1]} floats "
+                  f"per shard ({n} floats, {n % 4} in the scalar tail): equal to the plain "
+                  f"copies, max abs err {err}")
+    return worst
+
+
+def phase14():
+    """Both distributed resamplers bit for bit against ``resample_state``."""
+    import torch
+
+    from fastslam_tpu_torch.parallel import dryrun
+
+    cfg = config()
+    for profile, u0 in (("healthy", 0.0042), ("collapsed", 0.0042)):
+        t0 = time.perf_counter()
+        out = dryrun.check_resamplers(cfg, SHARDS, DEVICE, profile, u0, seed=14)
+        torch.cuda.synchronize()
+        want_halo = int(profile == "healthy")
+        if out != {"ring_launches": 1, "halo_path": want_halo}:
+            raise AssertionError(f"resamplers ({profile}): {out}, expected one exchange "
+                                 f"launch and halo path {want_halo}")
+        phase(14, f"{profile} weights, S={SHARDS}, P={P}, L={L}: ring (exchange kernel, "
+                  f"{out['ring_launches']} launch) and halo resamplers equal resample_state "
+                  f"bit for bit in every field, {'halo' if want_halo else 'fallback'} path, "
+                  f"{time.perf_counter() - t0:.2f} s")
+
+
+def sharded_config():
+    return config(resample_threshold_frac=1.0)
+
+
+def phase15():
+    """The sharded main path at full width, then S=1 and the single-device
+    steps on the same draws, bit for bit."""
+    import torch
+
+    from fastslam_tpu_torch.core.state import pad_measurements
+    from fastslam_tpu_torch.parallel import dryrun
+
+    cfg = sharded_config()
+    results, launches, wall = zeroed_run(lambda: dryrun.dryrun_multichip(
+        SHARDS, DEVICE, config=cfg, measurements=MEASUREMENTS, chunk=C, ticks=3))
+    expected = {k: 0 for k in launches}
+    for layout, _, kernel in dryrun.MODES.values():
+        expected[kernel] += SHARDS * (3 if layout in ("blocks", "planes") else 1)
+    expected[RING] = 1
+    if launches != expected:
+        raise AssertionError(f"sharded main path launches {launches}, expected {expected}")
+    phase(15, f"dryrun_multichip on {SHARDS} shards of the card, P={P} L={L} M={M} C={C}: "
+              f"wall {wall:.2f} s, launches {launches}")
+    ms = pad_measurements(cfg, MEASUREMENTS, DEVICE)
+    others = {n: dryrun.run_steps(cfg, n, DEVICE, ms, chunk=C, ticks=3) for n in (1, None)}
+    for mode, r in results.items():
+        if mode == "resample":
+            continue
+        for n, other in others.items():
+            o = other[mode]
+            same = torch.equal(r["est"], o["est"]) and all(
+                (v is None and getattr(o["state"], k) is None)
+                or torch.equal(v, getattr(o["state"], k))
+                for k, v in r["state"].__dict__.items())
+            if not same:
+                raise AssertionError(f"{mode}: {SHARDS} shards differ from "
+                                     f"{'1 shard' if n else 'the single-device step'}")
+        lw = r["state"].log_weights
+        phase(15, f"{mode}: launches {r['launches']}, estimates finite, bit for bit the "
+                  f"same at S=1 and on the single-device step; final weights "
+                  f"{'uniform (resampled)' if bool((lw == lw[0]).all()) else 'spread'}")
+    return launches
+
+
+def phase16(gen):
+    """Times: the exchange kernel at S=4 and the sharded chunked steps."""
+    import torch
+
+    from fastslam_tpu_torch.core import cuda_kernels, kernels
+    from fastslam_tpu_torch.core.state import (
+        Measurements, init_planes_state, pad_measurements,
+    )
+    from fastslam_tpu_torch.parallel.mesh import make_mesh, shard_planes_state
+    from fastslam_tpu_torch.parallel.sharded import make_sharded_planes_chunked_step
+
+    blocks = ring_blocks(SHARDS, P // SHARDS, gen)
+    stacked = torch.stack(blocks)
+    t = {}
+    for name, fn, reps in (("plain", lambda: cuda_kernels.ring_halo_exchange_ref(blocks), 10),
+                           ("kernel", lambda: cuda_kernels.ring_halo_exchange(blocks), 50),
+                           ("library", lambda: (torch.roll(stacked, 1, 0),
+                                                torch.roll(stacked, -1, 0)), 50),
+                           ("kernel_again", lambda: cuda_kernels.ring_halo_exchange(blocks), 50),
+                           ("plain_again", lambda: cuda_kernels.ring_halo_exchange_ref(blocks),
+                            10)):
+        t[name] = time_ms(fn, reps)
+    nbytes = 3 * stacked.numel() * 4          # each block read once, written twice
+    bound = bound_ms(nbytes, 0)
+    phase(16, f"{RING} S={SHARDS} ({stacked.shape[1]} x {stacked.shape[2]} floats per shard): "
+              f"kernel {t['kernel']:.4f} ms (again {t['kernel_again']:.4f}), plain "
+              f"{t['plain']:.4f} ms (again {t['plain_again']:.4f}), two torch.roll "
+              f"{t['library']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+              f"{nbytes / 1e6:.1f} MB), {bound[0] / t['kernel'] * 100:.1f} % of the bound reached")
+
+    # the sharded chunked steps, S=1 and S=4 in turns: ms per tick
+    step_ms = {}
+    for proposal in ("motion", "fastslam2"):
+        cfg = config(proposal_mode=proposal)
+        ms = Measurements(*tiled(pad_measurements(cfg, MEASUREMENTS, DEVICE)))
+        rots, trans = torch.zeros(C, device=DEVICE), torch.full((C,), 0.4, device=DEVICE)
+        gen_d = torch.Generator(device=DEVICE).manual_seed(16)
+        draws = kernels.draw(gen_d, P, C, fs2=proposal == "fastslam2")
+        for s in (1, SHARDS, SHARDS, 1):
+            mesh = make_mesh(cfg, [DEVICE] * s)
+            step = make_sharded_planes_chunked_step(cfg, mesh, C)
+            holder = [shard_planes_state(init_planes_state(cfg, DEVICE), mesh, cfg)]
+
+            def run():
+                holder[0], _ = step(holder[0], rots, trans, ms, draws)
+            step_ms.setdefault((proposal, s), []).append(time_ms(run, 5) / C)
+        phase(16, f"sharded chunked step, {proposal}, P={P} L={L} M={M} C={C}: "
+                  + ", ".join(f"S={s} {min(v):.4f} ms per tick (runs "
+                              f"{' / '.join(f'{x:.4f}' for x in v)})"
+                              for (p_, s), v in step_ms.items() if p_ == proposal))
+    return (t["kernel"], t["plain"], t["library"]), bound
+
+
 def main() -> int:
     import torch
 
@@ -922,6 +1096,11 @@ def main() -> int:
     errs[ICP] = phase10(batch)
     paths["adaptive_replay"] = phase11(log, fs2_ate)
     paths["online"] = phase12(log)
+    errs[RING] = phase13(gen)
+    phase14()
+    paths["sharded"] = phase15()
+    ring_times, bounds[RING] = phase16(gen)
+    times[RING] = ring_times
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

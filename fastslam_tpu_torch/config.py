@@ -4,8 +4,9 @@ A framework-free copy of :class:`fastslam_tpu.config.FastSLAMConfig`: the same
 field names and defaults, so a configuration carries across unchanged
 (``interop.config_from_jax_fields``).  Four fields of the JAX package are left
 out: ``use_pallas``, ``pallas_interpret`` and ``engine`` (here the device of
-the tensors decides which path runs, and the port always carries the planes
-layout) and the retired ``fs2_reuse_association`` lever.
+the tensors decides which path runs, and the caller picks the layout by the
+step it calls: the planes steps, or the blocks ``fastslam_step``) and the
+retired ``fs2_reuse_association`` lever.
 
 ``fuse_online_tick`` is kept for the carry-over but read by nothing: the
 JAX runner fuses the whole online tick into one dispatch for a remote TPU,
@@ -119,10 +120,11 @@ class FastSLAMConfig:
     linear_velocity: float = 0.3          # drive policy commands
     angular_velocity: float = 0.5
 
-    # ---- sharding (not ported yet) ----
+    # ---- sharding (parallel/: a 1-D particle mesh of shards on one card;
+    # the map axis is not ported) ----
     particle_axis: str = "particles"
     map_axis: str = "map"
-    distributed_resample: bool = False
+    distributed_resample: bool = False    # the halo resampler in the sharded blocks step
 
     # ---- numerics ----
     dtype: str = "float32"

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "fused_fs2_planes_multi_launch": [_I] + [_P] * 20 + [_I] * 5
     + [_F, _I, _F, _F, _F, _I, _P],
     "icp_correspondences_launch": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    "ring_halo_exchange_launch": [_I] + [_P] * 3 + [_I] * 2 + [_P],
 }
 
 

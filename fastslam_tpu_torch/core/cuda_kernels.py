@@ -12,11 +12,19 @@ Counterpart of ``fastslam_tpu/core/pallas_kernels.py``:
   the landmark EKF at the sampled pose (``csrc/fused_fs2.cu``);
 * the nearest-neighbour step of ICP (:func:`icp_correspondences`,
   ``csrc/icp_nn.cu``): for each source point of a batch of cloud pairs, the
-  closest valid target point.
+  closest valid target point;
+* the ring halo exchange of the distributed resampler
+  (:func:`ring_halo_exchange`, ``csrc/ring_halo.cu``): every shard's packed
+  particle block to both ring neighbours, for a ring of shards on one card.
+
+:func:`fused_update` is the blocks-layout (``[P, L, k]``) entry of the
+per-tick motion kernel: it transposes to planes and back, as the JAX
+package's wrapper of the same name does.
 
 The filter kernels run one thread per particle and share their
 per-measurement device code (``csrc/measurement.cuh``); the ICP kernel runs
-one thread per source point.  ``core/_build.py`` compiles and loads them.
+one thread per source point; the exchange kernel one thread per 16 bytes.
+``core/_build.py`` compiles and loads them.
 
 Each wrapper dispatches on the device of the tensors it is given:
 
@@ -43,10 +51,11 @@ from typing import Optional, Tuple
 import torch
 
 from fastslam_tpu_torch.config import FastSLAMConfig
+from fastslam_tpu_torch.core.state import FilterState, from_planes, to_planes
 
 LAUNCHES = {"fused_update_planes": 0, "fused_update_planes_multi": 0,
             "fused_fs2_planes": 0, "fused_fs2_planes_multi": 0,
-            "icp_correspondences": 0}
+            "icp_correspondences": 0, "ring_halo_exchange": 0}
 
 _LOG_TWO_PI = math.log(2.0 * math.pi)
 _PI = math.pi
@@ -60,6 +69,8 @@ _INVALID_KEY = 0x7F8000FF
 _SMEM_BYTES = 48 * 1024
 _STATIC_SMEM_BYTES = 64
 _MAX_THREADS = 128
+# the most shards one exchange launch takes (csrc/ring_halo.cu RING_MAX_SHARDS)
+RING_MAX_SHARDS = 64
 
 
 def _f32_bits(x: float) -> int:
@@ -675,6 +686,20 @@ def icp_correspondences_ref(source, target, target_valid):
 
 
 # ---------------------------------------------------------------------------
+# plain version: the ring halo exchange
+# ---------------------------------------------------------------------------
+
+def ring_halo_exchange_ref(blocks):
+    """Plain PyTorch version of :func:`ring_halo_exchange` (same contract):
+    a copy of each neighbour's block, shard by shard."""
+    _check_ring_blocks(blocks)
+    s = len(blocks)
+    lefts = [blocks[(i - 1) % s].clone() for i in range(s)]
+    rights = [blocks[(i + 1) % s].clone() for i in range(s)]
+    return lefts, rights
+
+
+# ---------------------------------------------------------------------------
 # checks and launch parameters
 # ---------------------------------------------------------------------------
 
@@ -696,6 +721,17 @@ def _check_nn_inputs(source, target, target_valid):
                              f"got {t.dtype} on {t.device}")
     if target_valid.device != device:
         raise ValueError(f"target_valid must lie on {device}")
+
+
+def _check_ring_blocks(blocks):
+    if not blocks or blocks[0].dim() != 2:
+        raise ValueError("a ring needs at least one [P_local, D] block")
+    first = blocks[0]
+    for b in blocks:
+        if (b.shape != first.shape or b.dtype != torch.float32
+                or b.device != first.device):
+            raise ValueError(f"ring blocks must be float32 {tuple(first.shape)} on "
+                             f"{first.device}, got {b.dtype} {tuple(b.shape)} on {b.device}")
 
 
 def _check_inputs(poses, log_weights, planes, lm_count, z, z_valid,
@@ -869,6 +905,28 @@ def fused_update_planes(poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb, lm_cc,
     LAUNCHES["fused_update_planes"] += 1
     return (log_weights, lm_mx, lm_my, lm_ca, lm_cb,
             lm_cc if config.parity_mode else None, lm_cd, lm_count)
+
+
+def fused_update(poses, log_weights, lm_mean, lm_cov, lm_count, z, z_valid,
+                 config: FastSLAMConfig):
+    """One tick of measurement updates on the blocks layout: lm_mean
+    ``[P, L, 2]``, lm_cov ``[P, L, 4]`` are transposed to ``[L, P]`` planes
+    for :func:`fused_update_planes` and back (``state.to_planes``,
+    ``from_planes``), with no padding.  On CUDA tensors that launches the
+    per-tick kernel; on the CPU it runs the kernel's plain version.  In
+    production the kernel keeps no ``cc`` plane and ``cov[..., 2]`` comes
+    back equal to ``cov[..., 1]``.
+
+    Returns new ``(log_weights, lm_mean, lm_cov, lm_count)``; the inputs are
+    not changed.
+    """
+    planes = to_planes(FilterState(poses, log_weights, lm_mean, lm_cov, lm_count), config)
+    logw, mx, my, ca, cb, cc, cd, cnt = fused_update_planes(
+        planes.poses, planes.log_weights, planes.lm_mx, planes.lm_my, planes.lm_ca,
+        planes.lm_cb, planes.lm_cc, planes.lm_cd, planes.lm_count, z, z_valid, config)
+    new = from_planes(planes.replace(log_weights=logw, lm_mx=mx, lm_my=my, lm_ca=ca,
+                                     lm_cb=cb, lm_cc=cc, lm_cd=cd, lm_count=cnt))
+    return new.log_weights, new.lm_mean, new.lm_cov, new.lm_count
 
 
 def fused_update_planes_multi(poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb,
@@ -1058,3 +1116,43 @@ def icp_correspondences(source, target, target_valid):
     )
     LAUNCHES["icp_correspondences"] += 1
     return dist, idx
+
+
+def ring_halo_exchange(blocks):
+    """Every shard's block to both ring neighbours, for a ring of shards on
+    one card, in one launch.
+
+    Args:
+      blocks: S float32 ``[P_local, D]`` blocks, one per shard in ring order,
+      contiguous and on one device (``D = 3 + 1 + 2L + 4L + 1`` for the packed
+      particle block of ``parallel/resample.py:pack_particle_block``).
+
+    Returns ``(lefts, rights)``: lists of S new blocks, ``lefts[s]`` the
+    block of shard ``s - 1`` and ``rights[s]`` that of shard ``s + 1``
+    (mod S).  At S = 1 both are copies of the one block.
+    """
+    blocks = list(blocks)
+    if blocks and blocks[0].device.type == "cpu":
+        return ring_halo_exchange_ref(blocks)
+    _check_ring_blocks(blocks)
+    device = _require_cuda(*blocks)
+    s, n = len(blocks), blocks[0].numel()
+    if s > RING_MAX_SHARDS:
+        raise ValueError(f"one exchange takes at most {RING_MAX_SHARDS} shards, got {s}")
+    if n >= 2 ** 31:
+        raise ValueError(f"a block of {n} floats is too large for one exchange")
+    if any(b.data_ptr() % 16 for b in blocks):
+        raise ValueError("the exchange kernel takes blocks aligned to 16 bytes")
+    from fastslam_tpu_torch.core import _build
+
+    lefts = [torch.empty_like(b) for b in blocks]
+    rights = [torch.empty_like(b) for b in blocks]
+    pointers = lambda ts: (ctypes.c_void_p * s)(*(t.data_ptr() for t in ts))
+    src, left, right = pointers(blocks), pointers(lefts), pointers(rights)
+    _launch(
+        _build.load().ring_halo_exchange_launch, device,
+        *(ctypes.c_void_p(ctypes.addressof(a)) for a in (src, left, right)),
+        ctypes.c_int(s), ctypes.c_int(n),
+    )
+    LAUNCHES["ring_halo_exchange"] += 1
+    return lefts, rights

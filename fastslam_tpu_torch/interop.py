@@ -1,6 +1,6 @@
 """Carry state and configuration across from the JAX package, as numpy.
 
-The JAX package's ``PlanesState`` and ``FastSLAMConfig`` are converted by
+The JAX package's ``PlanesState``, ``FilterState`` and ``FastSLAMConfig`` are converted by
 their field names, so both packages can compute on identical inputs (the
 parity tests do this).  Nothing here imports JAX: the caller hands over numpy
 arrays and plain dictionaries.
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from fastslam_tpu_torch.config import FastSLAMConfig
-from fastslam_tpu_torch.core.state import PlanesState
+from fastslam_tpu_torch.core.state import FilterState, PlanesState
 
 # JAX configuration fields the port does not have: the device picks the path
 # (use_pallas, pallas_interpret, engine); fs2_reuse_association is retired
@@ -24,6 +24,12 @@ JAX_ONLY_CONFIG_FIELDS = frozenset(
 
 _STATE_FIELDS = ("poses", "log_weights", "lm_mx", "lm_my", "lm_ca", "lm_cb",
                  "lm_cc", "lm_cd", "lm_count")
+_FILTER_FIELDS = ("poses", "log_weights", "lm_mean", "lm_cov", "lm_count")
+
+
+def _tensor(name: str, array, device) -> torch.Tensor:
+    dtype = torch.int32 if name == "lm_count" else torch.float32
+    return torch.tensor(np.asarray(array), dtype=dtype, device=device)
 
 
 def planes_state_from_numpy(arrays: Mapping[str, Optional[np.ndarray]],
@@ -36,8 +42,7 @@ def planes_state_from_numpy(arrays: Mapping[str, Optional[np.ndarray]],
             if name == "lm_cc":
                 return None
             raise KeyError(f"missing state field {name!r}")
-        dtype = torch.int32 if name == "lm_count" else torch.float32
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+        return _tensor(name, a, device)
 
     return PlanesState(**{name: conv(name) for name in _STATE_FIELDS})
 
@@ -47,6 +52,23 @@ def planes_state_to_numpy(state: PlanesState) -> Dict[str, Optional[np.ndarray]]
     return {name: None if getattr(state, name) is None
             else getattr(state, name).detach().cpu().numpy()
             for name in _STATE_FIELDS}
+
+
+def filter_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                            device: torch.device | str) -> FilterState:
+    """``FilterState`` fields as numpy arrays (the JAX ``rng`` key is
+    ignored) -> the port's blocks-layout tensors."""
+    missing = [name for name in _FILTER_FIELDS if arrays.get(name) is None]
+    if missing:
+        raise KeyError(f"missing state fields {missing}")
+    return FilterState(**{name: _tensor(name, arrays[name], device)
+                          for name in _FILTER_FIELDS})
+
+
+def filter_state_to_numpy(state: FilterState) -> Dict[str, np.ndarray]:
+    """The port's blocks-layout state -> numpy arrays under the JAX field
+    names."""
+    return {name: getattr(state, name).detach().cpu().numpy() for name in _FILTER_FIELDS}
 
 
 def config_from_jax_fields(fields: Mapping[str, object]) -> FastSLAMConfig:

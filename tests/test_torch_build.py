@@ -37,7 +37,7 @@ def test_library_key_follows_every_csrc_file(tmp_path):
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.source_digest(csrc) != base
     assert [p.name for p in _build.sources(csrc)] == ["fused_fs2.cu", "fused_update.cu",
-                                                      "icp_nn.cu"]
+                                                      "icp_nn.cu", "ring_halo.cu"]
     assert _build.source_digest(_build.CSRC) in _build.library_path().name
 
 
@@ -82,6 +82,8 @@ def wrapper_calls(cfg):
             meta(C), 1e-4, cfg),
         "icp_correspondences": lambda: cuda_kernels.icp_correspondences(
             meta(C, P, 2), meta(C, M, 2), meta(C, M, dtype=torch.bool)),
+        "ring_halo_exchange": lambda: cuda_kernels.ring_halo_exchange(
+            [meta(P, 3 + 1 + 6 * L + 1) for _ in range(C)]),
     }
 
 

@@ -216,7 +216,7 @@ def test_fs2_replay_runs_through_the_fs2_kernels(device):
     delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
     assert delta == {"fused_update_planes": 0, "fused_update_planes_multi": 0,
                      "fused_fs2_planes": 4, "fused_fs2_planes_multi": 6,
-                     "icp_correspondences": 0}
+                     "icp_correspondences": 0, "ring_halo_exchange": 0}
     assert np.isfinite(np.asarray(hist.est_poses)).all()
     assert hist.metrics()["ate_rmse_m"] < 0.25
 
@@ -304,3 +304,62 @@ def test_icp_and_adaptive_paths_run_through_the_kernels(device):
     assert delta["fused_fs2_planes"] == 24 and delta["fused_fs2_planes_multi"] == 0
     assert delta["icp_correspondences"] > 0
     assert np.isfinite(np.asarray(hist.est_poses)).all()
+
+
+@pytest.mark.parametrize("s,p_local,d", [(1, 2000, 389), (2, 1500, 389), (3, 1001, 389),
+                                         (8, 12_501, 389), (8, 333, 5), (3, 1, 5)])
+def test_ring_exchange_kernel_matches_plain(device, s, p_local, d):
+    """One launch moves every shard's block to both neighbours, exactly as
+    the plain copies do: S = 1 (both halos are the block itself), S = 2
+    (one neighbour, two buffers), blocks whose size is not a multiple of 4
+    floats (the scalar tail) and a block smaller than one float4."""
+    gen = torch.Generator(device=device).manual_seed(s * p_local)
+    blocks = [torch.randn((p_local, d), generator=gen, device=device) for _ in range(s)]
+    before = cuda_kernels.LAUNCHES["ring_halo_exchange"]
+    lefts, rights = cuda_kernels.ring_halo_exchange(blocks)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["ring_halo_exchange"] == before + 1
+    want_l, want_r = cuda_kernels.ring_halo_exchange_ref(blocks)
+    for g, w in zip(lefts + rights, want_l + want_r):
+        assert torch.equal(g, w)
+    assert torch.equal(lefts[0], blocks[-1]) and torch.equal(rights[-1], blocks[0])
+
+
+def test_ring_exchange_kernel_refuses_bad_blocks(device):
+    blocks = [torch.zeros((64, 389), device=device) for _ in range(3)]
+    with pytest.raises(ValueError, match="float32"):      # a block on the CPU
+        cuda_kernels.ring_halo_exchange(blocks[:2] + [torch.zeros((64, 389))])
+    with pytest.raises(ValueError, match="contiguous"):   # a strided block
+        cuda_kernels.ring_halo_exchange(
+            [b.t().contiguous().t() for b in blocks])
+    with pytest.raises(ValueError, match="float32"):      # another shape
+        cuda_kernels.ring_halo_exchange(blocks[:2] + [torch.zeros((63, 389), device=device)])
+    with pytest.raises(ValueError, match="aligned"):      # 1 float past an aligned start
+        flat = torch.zeros(64 * 389 + 1, device=device)
+        cuda_kernels.ring_halo_exchange([flat[1:].view(64, 389)] * 2)
+    with pytest.raises(ValueError, match="at most"):
+        cuda_kernels.ring_halo_exchange([blocks[0]] * (cuda_kernels.RING_MAX_SHARDS + 1))
+
+
+def test_sharded_engine_runs_through_the_kernels(device):
+    """The dry run at 4 shards of the card: S launches per tick or chunk of
+    the kernel each step names, one exchange launch per ring resample, and
+    every step equal to its single-device counterpart bit for bit."""
+    from fastslam_tpu_torch.parallel import dryrun
+
+    cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, max_measurements=M,
+                         resample_threshold_frac=1.0)
+    ms = pad_measurements(cfg, [(1.5 + 0.4 * i, -2.0 + 0.6 * i) for i in range(6)], device)
+    results = dryrun.dryrun_multichip(4, device, config=cfg, chunk=C, ticks=3,
+                                      measurements=[(1.5 + 0.4 * i, -2.0 + 0.6 * i)
+                                                    for i in range(6)])
+    assert results["resample"] == {"ring_launches": 1, "halo_path": 1}
+    single = dryrun.run_steps(cfg, None, device, ms, chunk=C, ticks=3)
+    for mode, (layout, _, kernel) in dryrun.MODES.items():
+        r = results[mode]
+        # dryrun_multichip checked the launches: S per tick or chunk
+        assert r["launches"] == {kernel: 4 * (3 if layout in ("blocks", "planes") else 1)}
+        assert torch.equal(r["est"], single[mode]["est"]), mode
+        for k, v in single[mode]["state"].__dict__.items():
+            g = getattr(r["state"], k)
+            assert (v is None and g is None) or torch.equal(g, v), (mode, k)
