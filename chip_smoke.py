@@ -69,7 +69,26 @@ Phases, one line each (or more):
     step;
 16. the exchange kernel's time (CUDA events) beside its plain version, two
     ``torch.roll`` calls of the stacked blocks and its bound, and the
-    sharded chunked steps' ms per tick at S=4 beside S=1.
+    sharded chunked steps' ms per tick at S=4 beside S=1;
+17. the ceiling probes at L=64, P=100,000 (tile 256, 256 passes): the copy,
+    ``mul_add`` and ``fma_chain`` kernels against their plain versions (the
+    first two exactly, ``fma_chain`` within rtol 1e-6); the probes' main
+    path, ``probes.hbm_floor.run`` and ``probes.vpu_roofline.run``, with
+    their launches; the copy's library call (``torch._foreach_add``); the
+    achieved GB/s, shared-memory bytes/s and FMA TFLOP/s beside their bounds
+    and the SM clock sampled in the phase; and a short run of both probe
+    commands as subprocesses, whose JSON lines must parse;
+18. the online loop of phase 12 again with every hook on (a snapshot every
+    10 ticks, a metrics JSONL, a checkpoint at tick 150, health): the same
+    300 estimates bit for bit, a parseable snapshot of at most 500 particles
+    and at least one landmark, 300 tick records, the checkpoint back at
+    iteration 150 with full shapes and finite arrays, no
+    ``nan_or_inf_state``; ms per tick with and without hooks and the
+    seconds each hook took;
+19. the reference API: ``api.FastSLAM2`` at P=100,000, L=64, production, 10
+    ticks of ``bench.py``'s measurement set (finite poses, 10 launches of the
+    per-tick update kernel), and ``api.ICP`` on a pair of the drive equal to
+    ``proposal/icp.icp`` on the same pair.
 
 Any failure raises.  The line before the last is a JSON summary of the
 kernels (launches of each main path's first run and their sum; the bound
@@ -104,11 +123,19 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                             "fastslam_tpu/core/pallas_kernels.py:1901"),
     "ring_halo_exchange": ("fastslam_tpu_torch/csrc/ring_halo.cu",
                            "fastslam_tpu/parallel/ring_resample.py:106"),
+    "hbm_copy": ("fastslam_tpu_torch/csrc/probes.cu", "scripts/bench_hbm_floor.py:47"),
+    "mul_add": ("fastslam_tpu_torch/csrc/probes.cu", "scripts/bench_vpu_roofline.py:112"),
+    "fma_chain": ("fastslam_tpu_torch/csrc/probes.cu", "scripts/bench_vpu_roofline.py:115"),
 }
 MOTION = ("fused_update_planes", "fused_update_planes_multi")
 FS2 = ("fused_fs2_planes", "fused_fs2_planes_multi")
 ICP = "icp_correspondences"
 RING = "ring_halo_exchange"
+PROBES = ("hbm_copy", "mul_add", "fma_chain")
+PROBE_TILE, PROBE_PASSES = 256, 256
+FMA_RTOL = 1e-6      # fma_chain vs its plain version: rare double roundings
+# shared memory streams 32 banks x 4 bytes per clock on each SM
+SMEM_BYTES_PER_CLOCK_PER_SM = 128
 SHARDS = 4           # shards of the sharded main path, all on the one card
 ADAPTIVE_C = 8       # the chunk of the adaptive replay (EVAL.md:55 geometry)
 SLIP = (0.02, 0.02)  # wheel slip (rotation, translation std-devs)
@@ -160,7 +187,9 @@ def ptxas_summary(report: str):
         if entry:
             m = re.search(r"(fused_(?:update|fs2)_planes(?:_multi)?_kernel)I((?:Lb[01]E)+)",
                           entry.group(1))
-            plain = next((k for k in ("icp_nn_kernel", "ring_halo_kernel")
+            plain = next((k for k in ("icp_nn_kernel", "ring_halo_kernel",
+                                      "hbm_copy_kernel", "mul_add_kernel",
+                                      "fma_chain_kernel")
                           if k in entry.group(1)), entry.group(1))
             name = (f"{m.group(1)}<{','.join(re.findall('Lb([01])E', m.group(2)))}>"
                     if m else plain)
@@ -897,7 +926,7 @@ def phase12(log):
         raise AssertionError(f"online loop: a second run differs by "
                              f"{np.abs(again - est).max():.3e}")
     phase(12, "a second run gives the same 300 estimates bit for bit")
-    return launches
+    return launches, est, wall
 
 
 def ring_blocks(s, p_local, gen):
@@ -1049,6 +1078,228 @@ def phase16(gen):
     return (t["kernel"], t["plain"], t["library"]), bound
 
 
+def onchip_bound_ms(nbytes, clock_mhz):
+    """Least time of ``nbytes`` of shared-memory traffic on the card: 128
+    bytes per clock on each SM at the sampled SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return nbytes / (SMEM_BYTES_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6) * 1e3
+
+
+def phase17(gen, card):
+    """The ceiling probes: each kernel against its plain version, the probes'
+    entry points as their main path, times against bounds, and both probe
+    commands as subprocesses."""
+    import os
+
+    import torch
+
+    from fastslam_tpu_torch.core import cuda_kernels
+    from fastslam_tpu_torch.probes import hbm_floor, vpu_roofline
+    from fastslam_tpu_torch.utils.profiling import sm_clock_mhz
+
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)
+    bufs = [randn(L, P) for _ in range(6)] + [randn(1, P)]
+    a, b, c = randn(L, P), randn(L, P), randn(L, P)
+    errs = {}
+    for name, got, want in (
+        ("hbm_copy", lambda: cuda_kernels.hbm_copy(bufs),
+         lambda: cuda_kernels.hbm_copy_ref(bufs)),
+        ("mul_add", lambda: [cuda_kernels.mul_add(a, b, c, PROBE_PASSES, PROBE_TILE)],
+         lambda: [cuda_kernels.mul_add_ref(a, b, c, PROBE_PASSES, PROBE_TILE)]),
+        ("fma_chain", lambda: [cuda_kernels.fma_chain(a, PROBE_PASSES)],
+         lambda: [cuda_kernels.fma_chain_ref(a, PROBE_PASSES)]),
+    ):
+        g = got()
+        torch.cuda.synchronize()
+        w = want()
+        err = max(float((x - y).abs().max()) for x, y in zip(g, w))
+        off = sum(int((x != y).sum()) for x, y in zip(g, w))
+        if name == "fma_chain":
+            rel = max(float(((x - y).abs() / y.abs()).max()) for x, y in zip(g, w))
+            if not rel <= FMA_RTOL:
+                raise AssertionError(f"fma_chain: max rel err {rel:.3e} > {FMA_RTOL}")
+            detail = f"max rel err {rel:.3e} (rtol {FMA_RTOL}), {off} of {a.numel()} off"
+        else:
+            if off or not all(torch.equal(x, y) for x, y in zip(g, w)):
+                raise AssertionError(f"{name}: {off} values differ from the plain version")
+            detail = "equal exactly"
+        errs[name] = err
+        phase(17, f"{name} vs plain at L={L} P={P}: {detail}, max abs err {err:.3e}")
+
+    clocks = [sm_clock_mhz()]
+    k_copy, k_vpu = 20, 10
+    runs, launches, wall = zeroed_run(lambda: (
+        hbm_floor.run(P, L, k_copy, DEVICE),
+        vpu_roofline.run(P, L, PROBE_PASSES, k_vpu, PROBE_TILE, DEVICE)))
+    clocks.append(sm_clock_mhz())
+    expected = {k: 0 for k in launches} | {"hbm_copy": 2 * k_copy, "mul_add": 4 * k_vpu,
+                                           "fma_chain": 4 * k_vpu}
+    if launches != expected:
+        raise AssertionError(f"probe launches {launches}, expected {expected}")
+    copy, vpu = runs
+    phase(17, f"probes' main path (hbm_floor.run k={k_copy}, vpu_roofline.run k={k_vpu}): "
+              f"wall {wall:.2f} s, launches {launches}")
+
+    # plain, library, plain for the copy; the plain probes once
+    t = {"plain_copy": time_ms(lambda: cuda_kernels.hbm_copy_ref(bufs), 10),
+         "library_copy": time_ms(lambda: torch._foreach_add(bufs, 1.0), 20),
+         "plain_copy_again": time_ms(lambda: cuda_kernels.hbm_copy_ref(bufs), 10),
+         "plain_mul_add": time_ms(lambda: cuda_kernels.mul_add_ref(
+             a, b, c, PROBE_PASSES, PROBE_TILE), 2),
+         "plain_fma": time_ms(lambda: cuda_kernels.fma_chain_ref(a, PROBE_PASSES), 1)}
+    clocks.append(sm_clock_mhz())
+    clock = min(c for c in clocks if c)
+    n = L * P
+    copy_bytes = hbm_floor.copy_bytes(P, L)
+    smem_bytes = PROBE_PASSES * 4 * 4 * n        # 3 reads, 1 write per element and pass
+    fma_flops = 2 * 8 * PROBE_PASSES * n
+    bounds = {"hbm_copy": bound_ms(copy_bytes, 0),
+              "mul_add": bound_ms(4 * 4 * n, (2 * PROBE_PASSES + 1) * n),
+              "fma_chain": bound_ms(2 * 4 * n, fma_flops)}
+    onchip = onchip_bound_ms(smem_bytes, clock)
+    times = {"hbm_copy": (copy["copy_ms"], t["plain_copy"], t["library_copy"]),
+             "mul_add": (vpu["mul_add_ms"], t["plain_mul_add"], None),
+             "fma_chain": (vpu["fma_chain_ms"], t["plain_fma"], None)}
+    tag = f"({card}, SM clock {'/'.join(f'{c:.0f}' for c in clocks)} MHz)"
+    phase(17, f"hbm_copy: {copy['copy_ms']:.4f} ms per call, {copy['gbps']:.1f} GB/s "
+              f"against {PEAK_BYTES_PER_S / 1e9:.0f} GB/s ({bounds['hbm_copy'][0] / copy['copy_ms'] * 100:.1f} % "
+              f"of the {bounds['hbm_copy'][0]:.4f} ms bound, {copy_bytes / 1e6:.1f} MB); "
+              f"plain {t['plain_copy']:.4f} ms (again {t['plain_copy_again']:.4f}), "
+              f"torch._foreach_add {t['library_copy']:.4f} ms {tag}")
+    phase(17, f"mul_add: {vpu['mul_add_ms']:.4f} ms per call, shared memory "
+              f"{smem_bytes / vpu['mul_add_ms'] / 1e9:.1f} TB/s against "
+              f"{smem_bytes / onchip / 1e9:.1f} TB/s at {clock:.0f} MHz ({onchip / vpu['mul_add_ms'] * 100:.1f} % "
+              f"of the {onchip:.4f} ms on-chip bound, {smem_bytes / 1e9:.1f} GB); "
+              f"bare-function bound {bounds['mul_add'][0]:.4f} ms ({bounds['mul_add'][1]}); "
+              f"plain {t['plain_mul_add']:.2f} ms {tag}")
+    phase(17, f"fma_chain: {vpu['fma_chain_ms']:.4f} ms per call, "
+              f"{fma_flops / vpu['fma_chain_ms'] / 1e9:.2f} TFLOP/s against "
+              f"{PEAK_F32_OPS_PER_S / 1e12:.0f} ({bounds['fma_chain'][0] / vpu['fma_chain_ms'] * 100:.1f} % "
+              f"of the {bounds['fma_chain'][0]:.4f} ms bound); plain {t['plain_fma']:.2f} ms {tag}")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for module, args in (("hbm_floor", ["--k", "5"]),
+                         ("vpu_roofline", ["--k", "3", "--passes", "64"])):
+        proc = subprocess.run([sys.executable, "-m", f"fastslam_tpu_torch.probes.{module}",
+                               *args], cwd=root, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"probes.{module} exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        if out["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"{module} ran on {out['device']}")
+        phase(17, f"python -m fastslam_tpu_torch.probes.{module} {' '.join(args)}: "
+                  f"{json.dumps(out)}")
+    return errs, launches, times, bounds, onchip
+
+
+def phase18(log, online_est, online_wall):
+    """The online loop of phase 12 with every production hook on."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fastslam_tpu_torch.app.runner import run_driver
+    from fastslam_tpu_torch.drivers.replay import ReplayDriver
+    from fastslam_tpu_torch.io.checkpoint import load_checkpoint
+    from fastslam_tpu_torch.io.serializer import deserialize_tick
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                           "chip_smoke_hooks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    snap, metrics, ckpt = (os.path.join(out_dir, f)
+                           for f in ("fast_slam.json", "metrics.jsonl", "ck.npz"))
+    try:
+        hist, launches, wall = zeroed_run(lambda: run_driver(
+            ReplayDriver(log), adaptive_config(), rng=0, device=DEVICE,
+            serialize_path=snap, serialize_every=10, metrics_path=metrics,
+            checkpoint_path=ckpt, checkpoint_every=150, health=True))
+        check_icp_launches("hooked online loop", launches, {"fused_fs2_planes": 300})
+        est = np.asarray(hist.est_poses)
+        if not np.array_equal(est, online_est):
+            raise AssertionError(f"hooked online loop: estimates differ from phase 12's "
+                                 f"by {np.abs(est - online_est).max():.3e}")
+        view = deserialize_tick(snap)
+        if view is None or not 0 < len(view["particles"]) <= 500 or not view["landmarks"]:
+            raise AssertionError(f"snapshot {snap}: {view and len(view['particles'])} "
+                                 f"particles, {view and len(view['landmarks'])} landmarks")
+        records = [json.loads(line) for line in open(metrics)]
+        ticks = sum(r["kind"] == "tick" for r in records)
+        health = [r for r in records if r["kind"] == "health"]
+        if ticks != 300 or any("nan_or_inf_state" in r["issues"] for r in health):
+            raise AssertionError(f"metrics: {ticks} tick records, health {health[:3]}")
+        size_mb = os.path.getsize(ckpt) / 1e6
+        state, meta = load_checkpoint(ckpt, DEVICE)
+        shapes = {"poses": (P, 3), "log_weights": (P,), "lm_mean": (P, L, 2),
+                  "lm_cov": (P, L, 4), "lm_count": (P,)}
+        got = {k: tuple(getattr(state, k).shape) for k in shapes}
+        finite = all(bool(torch.isfinite(getattr(state, k).float()).all()) for k in shapes)
+        if meta["iteration"] != 150 or got != shapes or not finite or meta["generator"] is None:
+            raise AssertionError(f"checkpoint: iteration {meta['iteration']}, shapes {got}, "
+                                 f"finite {finite}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    spent = hist.stage_seconds
+    issues = sorted({i for r in health for i in r["issues"]})
+    phase(18, f"run_driver with every hook on, 300 ticks P={P} L={L}: the same 300 "
+              f"estimates as phase 12 bit for bit; wall {wall:.2f} s = "
+              f"{wall / 300 * 1e3:.2f} ms per tick (phase 12 without hooks "
+              f"{online_wall / 300 * 1e3:.2f} ms); hooks' host seconds: "
+              + ", ".join(f"{k} {spent[k]:.3f}" for k in ("health", "metrics", "serialize",
+                                                          "checkpoint"))
+              + f" (30 snapshots, 1 checkpoint of {size_mb:.1f} MB); "
+              f"{len(view['particles'])} particles and {len(view['landmarks'])} landmarks "
+              f"in the last snapshot; health issues seen: {issues or 'none'}")
+    return launches
+
+
+def phase19(log):
+    """The reference API facades on the card."""
+    import numpy as np
+    import torch
+
+    from fastslam_tpu_torch import api
+    from fastslam_tpu_torch.app.runner import scan_points
+    from fastslam_tpu_torch.config import DEFAULT_CONFIG
+    from fastslam_tpu_torch.models import Measurement
+    from fastslam_tpu_torch.proposal.icp import icp
+
+    pts, valid = scan_points(log)
+    src, tgt = pts[100][valid[100]], pts[101][valid[101]]
+
+    def run():
+        t0 = time.perf_counter()
+        slam = api.FastSLAM2(config(), rng=0, device=DEVICE)
+        poses = [slam.iterate(0.0, 0.4, [Measurement(d, b) for d, b in MEASUREMENTS])
+                 for _ in range(10)]
+        tick_s = (time.perf_counter() - t0) / 10   # each iterate ends in a host copy
+        return poses, api.ICP.get_transformation(src, tgt, device=DEVICE), tick_s
+
+    (poses, (rot, trans), tick_s), launches, _ = zeroed_run(run)
+    want = {k: 0 for k in launches} | {"fused_update_planes": 10, ICP: launches[ICP]}
+    if launches != want or not launches[ICP]:
+        raise AssertionError(f"api launches {launches}, expected {want} and ICP > 0")
+    if not np.isfinite(poses).all():
+        raise AssertionError(f"api.FastSLAM2 poses not finite: {poses[-1]}")
+    ones = lambda a: torch.ones(len(a), dtype=torch.bool, device=DEVICE)
+    res = icp(torch.from_numpy(src).to(DEVICE), torch.from_numpy(tgt).to(DEVICE), ones(src),
+              ones(tgt), DEFAULT_CONFIG.replace(icp_max_iterations=100, icp_tolerance=1e-5))
+    if not (np.array_equal(rot, res.rotation.cpu().numpy())
+            and np.array_equal(trans, res.translation.cpu().numpy())):
+        raise AssertionError("api.ICP differs from proposal/icp.icp on the same pair")
+    phase(19, f"api.FastSLAM2 P={P} L={L} production, 10 ticks of bench.py's {M} "
+              f"measurements: last pose {tuple(round(v, 4) for v in poses[-1])}, "
+              f"{tick_s * 1e3:.2f} ms per tick (host clock, the first tick included); "
+              f"api.ICP on scans 100 -> 101 equals proposal.icp.icp bit for bit "
+              f"(theta {float(np.arctan2(rot[1, 0], rot[0, 0])):.6f} rad); launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1095,12 +1346,18 @@ def main() -> int:
     times, bounds = phase9(gen, ms, batch)
     errs[ICP] = phase10(batch)
     paths["adaptive_replay"] = phase11(log, fs2_ate)
-    paths["online"] = phase12(log)
+    paths["online"], online_est, online_wall = phase12(log)
     errs[RING] = phase13(gen)
     phase14()
     paths["sharded"] = phase15()
     ring_times, bounds[RING] = phase16(gen)
     times[RING] = ring_times
+    probe_errs, paths["probes"], probe_times, probe_bounds, onchip = phase17(gen, card)
+    errs.update(probe_errs)
+    times.update(probe_times)
+    bounds.update(probe_bounds)
+    paths["hooked_online"] = phase18(log, online_est, online_wall)
+    paths["api"] = phase19(log)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1110,6 +1367,7 @@ def main() -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": times[name][2]}
+        | ({"onchip_bound_ms": onchip} if name == "mul_add" else {})
         for name, (src, replaces) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

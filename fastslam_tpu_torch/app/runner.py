@@ -7,8 +7,10 @@ Counterpart of ``fastslam_tpu/app/runner.py``:
   odometry from the previous tick's commands, the optional ICP refinement
   of that odometry with adaptive proposal floors, the frontend, one filter
   step (production or parity mode), the dead-reckoning warmup gate and the
-  per-tick evaluation against ground truth.  This is the JAX runner's split
-  path; the port has no fused one-dispatch tick (``config.py``).
+  per-tick evaluation against ground truth, and the production hooks
+  (viewer snapshots, a JSONL metrics log, checkpoints, health monitoring
+  with recovery).  This is the JAX runner's split path; the port has no
+  fused one-dispatch tick (``config.py``).
 * :func:`replay_chunked`: a recorded log has no feedback from the estimate
   to the commands, so the frontend runs over every scan first, the ICP
   matches of the whole log run as one batch (:func:`icp_floor_stage`), then
@@ -30,11 +32,19 @@ import torch
 
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import kernels
-from fastslam_tpu_torch.core.state import Measurements, init_planes_state
+from fastslam_tpu_torch.core.state import (
+    FilterState, Measurements, from_planes, init_planes_state, to_planes,
+)
 from fastslam_tpu_torch.eval.metrics import TickEvaluation, evaluate_tick, trajectory_metrics
+from fastslam_tpu_torch.frontend.global_map import cluster_known_landmarks
 from fastslam_tpu_torch.frontend.pipeline import scan_to_measurements
+from fastslam_tpu_torch.io.checkpoint import save_checkpoint
+from fastslam_tpu_torch.io.serializer import serialize_tick
 from fastslam_tpu_torch.proposal import adaptive
 from fastslam_tpu_torch.proposal.icp import icp_point_to_line, rotate_points
+from fastslam_tpu_torch.utils.health import HealthMonitor
+from fastslam_tpu_torch.utils.logging_utils import MetricsLog
+from fastslam_tpu_torch.utils.profiling import PhaseTimer
 
 
 @dataclass
@@ -52,8 +62,10 @@ class RunHistory:
     # per-tick floor trajectories (batched replay only)
     floor_traj: tuple | None = None
     # host-clock seconds of the online loop's stages, summed over its ticks:
-    # "icp_refine" and "tick" (frontend + filter step); each ends in a
-    # device-to-host copy, so no synchronization is added to time them
+    # "icp_refine" and "tick" (frontend + filter step), and each production
+    # hook that is on ("health", "metrics", "serialize", "checkpoint"); each
+    # ends in a device-to-host copy or a file write, so no synchronization is
+    # added to time them
     stage_seconds: dict = field(default_factory=dict)
 
     def metrics(self, skip: int = 0) -> dict:
@@ -293,6 +305,15 @@ class SLAMRunner:
             self.robot = out[:3].astype(float).copy()
         return self.robot.copy()
 
+    def state_blocks(self) -> FilterState:
+        """The filter state in the ``[P, L, k]`` blocks layout, for the health
+        monitor, the global map and checkpoints (a transposed copy)."""
+        return from_planes(self.state)
+
+    def set_state_blocks(self, state: FilterState) -> None:
+        """Install a blocks-layout state (after a health recovery)."""
+        self.state = to_planes(state, self.config)
+
 
 def run_driver(
     driver,
@@ -302,8 +323,10 @@ def run_driver(
     *,
     device: torch.device | str = "cuda",
     serialize_path: Optional[str] = None,
+    serialize_every: int = 1,
     metrics_path: Optional[str] = None,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 200,
     health: bool = False,
     odometry_noise: tuple = (0.0, 0.0),
     odometry_noise_seed: int = 123,
@@ -312,17 +335,25 @@ def run_driver(
 
     ``odometry_noise`` = (rotation, translation) std-devs of wheel slip added
     to what the filter sees, one draw per active component tick; ground truth
-    is unaffected.  The JAX runner's production hooks (viewer snapshots,
-    metrics log, checkpoints, health monitoring) are not ported yet.
+    is unaffected.
+
+    The production hooks, all off by default, run after each tick's filter
+    step in this order: the health check (``health``), with a recovery from
+    ``checkpoint_path`` or a re-initialization when the state is no longer
+    finite; a ``tick`` record in the JSONL ``metrics_path`` (and a ``health``
+    record for each failed check); a viewer snapshot at ``serialize_path``
+    every ``serialize_every`` ticks (the global map of
+    :func:`~fastslam_tpu_torch.frontend.global_map.cluster_known_landmarks`);
+    a checkpoint of the blocks-layout state at ``checkpoint_path`` every
+    ``checkpoint_every`` ticks from tick ``checkpoint_every`` on.  The hooks
+    read the state and draw nothing, so they leave the estimates as they
+    are; with every hook off the loop adds no synchronization.
     """
-    hooks = {"serialize_path": serialize_path, "metrics_path": metrics_path,
-             "checkpoint_path": checkpoint_path, "health": health}
-    asked = sorted(k for k, v in hooks.items() if v)
-    if asked:
-        raise _not_ported(f"run_driver's {', '.join(asked)}", "IO and hooks")
     runner = SLAMRunner(config, rng, device=device)
     history = RunHistory()
     odo_rng = np.random.default_rng(odometry_noise_seed)
+    monitor = HealthMonitor(config) if health else None
+    metrics = MetricsLog(metrics_path) if metrics_path else None
 
     # the filter's world frame is the robot's start pose: ground truth maps
     # through the full SE(2) inverse of the start pose
@@ -335,6 +366,7 @@ def run_driver(
     prev_cmd = (0.0, 0.0)
     spent = history.stage_seconds
     spent.update(icp_refine=0.0, tick=0.0)
+    hook_time = PhaseTimer()   # each hook ends in a host copy or a file write
     while running and ticks < max_ticks:
         scan = driver.get_laser()
         points, valid = scan.to_points()
@@ -374,12 +406,41 @@ def run_driver(
                        (gp.yaw - off[2] + np.pi) % (2 * np.pi) - np.pi])
         history.est_poses.append(est)
         history.gt_poses.append(gt)
-        history.evaluations.append(evaluate_tick(gt, est))
+        ev = evaluate_tick(gt, est)
+        history.evaluations.append(ev)
         history.num_measurements.append(runner._last_num_measurements)
+
+        if monitor is not None:
+            with hook_time.phase("health"):
+                rep = monitor.check(runner.state, est)
+                if not rep.ok:
+                    if metrics:
+                        metrics.write("health", tick=ticks, issues=rep.issues)
+                    if "nan_or_inf_state" in rep.issues:
+                        runner.set_state_blocks(monitor.recover(
+                            runner.state, est, checkpoint_path=checkpoint_path))
+        if metrics:
+            with hook_time.phase("metrics"):
+                metrics.write("tick", tick=ticks, distance=ev.distance,
+                              num_measurements=runner._last_num_measurements)
+        if serialize_path and ticks % serialize_every == 0:
+            with hook_time.phase("serialize"):
+                cents, ok = cluster_known_landmarks(runner.state_blocks(), config)
+                cents, ok = cents.cpu().numpy(), ok.cpu().numpy()
+                serialize_tick(est, gt, runner.state.poses.cpu().numpy(),
+                               [tuple(map(float, c)) for c in cents[ok]],
+                               ev.to_dict(), path=serialize_path)
+        if checkpoint_path and ticks and ticks % checkpoint_every == 0:
+            with hook_time.phase("checkpoint"):
+                save_checkpoint(checkpoint_path, runner.state_blocks(), iteration=ticks,
+                                robot_pose=runner.robot, generator=runner._generator)
 
         running = driver.step()
         ticks += 1
 
+    if metrics:
+        metrics.close()
+    spent.update(hook_time.totals)
     if runner._adaptive_floors:
         history.final_floors = (runner._floor_xy, runner._floor_th)
         r0 = runner._floor_est.read(0)

@@ -46,6 +46,9 @@ _SIGNATURES = {
     + [_F, _I, _F, _F, _F, _I, _P],
     "icp_correspondences_launch": [_I] + [_P] * 5 + [_I] * 3 + [_P],
     "ring_halo_exchange_launch": [_I] + [_P] * 3 + [_I] * 2 + [_P],
+    "hbm_copy_launch": [_I] + [_P] * 2 + [_I] * 2 + [_P],
+    "mul_add_launch": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    "fma_chain_launch": [_I] + [_P] * 2 + [_I] * 2 + [_P],
 }
 
 

@@ -1,11 +1,12 @@
-"""Connected-component clustering (DBSCAN with ``min_samples=1``) on
-fixed-capacity tensors.
+"""Density clustering (DBSCAN) on fixed-capacity tensors.
 
-Counterpart of ``connected_component_clusters`` and ``_centroids`` of
-``fastslam_tpu/frontend/clustering.py``: a dense eps-adjacency matrix and
-iterated min-label propagation with pointer jumping, then masked centroids.
-The output is a per-point cluster representative and centroid at static
-shape.  (Full DBSCAN, ``dbscan_clusters``, is not ported yet.)
+Counterpart of ``fastslam_tpu/frontend/clustering.py``: a dense
+eps-adjacency matrix and iterated min-label propagation with pointer
+jumping, then masked centroids.  :func:`connected_component_clusters` is
+DBSCAN with ``min_samples=1`` (the frontend's intersection clustering);
+:func:`dbscan_clusters` is full DBSCAN with core, border and noise points
+(the global landmark map's merge).  The output is a per-point cluster
+representative and centroid at static shape.
 """
 
 from __future__ import annotations
@@ -46,6 +47,28 @@ def connected_component_clusters(points: torch.Tensor, valid: torch.Tensor,
     adj = (d2 <= eps * eps) & valid[:, None] & valid[None, :]
     labels = _propagate_min_labels(adj, valid, iters)
     return _centroids(points, valid, labels)
+
+
+def dbscan_clusters(points: torch.Tensor, valid: torch.Tensor, eps: float,
+                    min_samples, iters: int = 16) -> Clusters:
+    """Full DBSCAN of ``[N, 2]`` points; ``min_samples`` may be a 0-d
+    tensor (computed on the device, never read on the host).
+
+    A point is core if its eps-ball (itself included) holds at least
+    ``min_samples`` valid points; clusters are the connected components of
+    the core points; a non-core point joins the smallest label among its
+    core neighbours (a border point); the rest is noise (``is_rep`` False,
+    label ``N``)."""
+    n = points.shape[0]
+    diff = points[:, None, :] - points[None, :, :]
+    d2 = torch.sum(diff * diff, dim=-1)
+    adj = (d2 <= eps * eps) & valid[:, None] & valid[None, :]
+    degree = adj.sum(dim=1)   # includes the point itself
+    core = valid & (degree >= min_samples)
+    labels = _propagate_min_labels(adj & core[:, None] & core[None, :], core, iters)
+    border = torch.where(adj & core[None, :], labels[None, :], n).amin(dim=1)
+    labels = torch.where(core, labels, border)
+    return _centroids(points, labels < n, labels)
 
 
 def _centroids(points: torch.Tensor, valid: torch.Tensor,

@@ -37,7 +37,8 @@ def test_library_key_follows_every_csrc_file(tmp_path):
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.source_digest(csrc) != base
     assert [p.name for p in _build.sources(csrc)] == ["fused_fs2.cu", "fused_update.cu",
-                                                      "icp_nn.cu", "ring_halo.cu"]
+                                                      "icp_nn.cu", "probes.cu",
+                                                      "ring_halo.cu"]
     assert _build.source_digest(_build.CSRC) in _build.library_path().name
 
 
@@ -84,6 +85,11 @@ def wrapper_calls(cfg):
             meta(C, P, 2), meta(C, M, 2), meta(C, M, dtype=torch.bool)),
         "ring_halo_exchange": lambda: cuda_kernels.ring_halo_exchange(
             [meta(P, 3 + 1 + 6 * L + 1) for _ in range(C)]),
+        "hbm_copy": lambda: cuda_kernels.hbm_copy([meta(L, P) for _ in range(6)]
+                                                  + [meta(1, P)]),
+        "mul_add": lambda: cuda_kernels.mul_add(meta(L, P), meta(L, P), meta(L, P),
+                                                passes=3, tile=32),
+        "fma_chain": lambda: cuda_kernels.fma_chain(meta(L, P), passes=3),
     }
 
 

@@ -202,21 +202,24 @@ def test_adaptive_replay_tracks_like_jax(drive):
     np.testing.assert_allclose(got.final_floors, want.final_floors, atol=1e-5)
 
 
-def test_replay_refuses_paths_not_ported(drive):
-    """Parity replay, the online loop's hooks and corner tracking are
-    refused; fs2, ICP and adaptive floors run."""
+def test_replay_refuses_paths_not_ported(drive, tmp_path):
+    """Parity replay and corner tracking are refused; the online loop's
+    hooks, each alone, and fs2, ICP and adaptive floors run."""
     cfg = config_from_jax_fields(dataclasses.asdict(jax_config()))
     with pytest.raises(ValueError, match="production"):
         replay_chunked(drive, cfg.replace(parity_mode=True), device="cpu")
     from fastslam_tpu_torch.drivers.replay import ReplayDriver
 
-    for kw in ({"serialize_path": "x.json"}, {"metrics_path": "m.jsonl"},
-               {"checkpoint_path": "c"}, {"health": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_driver(ReplayDriver(drive), cfg, device="cpu", **kw)
+    short = record_log(SimWorld(seed=3), num_ticks=6)
+    for kw in ({"serialize_path": str(tmp_path / "x.json")},
+               {"metrics_path": str(tmp_path / "m.jsonl")},
+               {"checkpoint_path": str(tmp_path / "c.npz"), "checkpoint_every": 5},
+               {"health": True}):
+        hist = run_driver(ReplayDriver(short), cfg, device="cpu", **kw)
+        assert len(hist.est_poses) == 6, kw
+    assert all((tmp_path / f).is_file() for f in ("x.json", "m.jsonl", "c.npz"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_driver(ReplayDriver(drive), cfg.replace(track_corners=True), device="cpu")
-    short = record_log(SimWorld(seed=3), num_ticks=6)
     for kw in ({"proposal_mode": "fastslam2"},
                {"use_icp_proposal": True},
                {"proposal_mode": "fastslam2", "use_icp_proposal": True,
