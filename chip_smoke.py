@@ -6,12 +6,15 @@ Phases, one line each (or more):
 
 0. environment: the card's name and power limit (exits non-zero without a GPU);
 1. build the CUDA kernels from ``fastslam_tpu_torch/csrc`` with nvcc, and
-   print each kernel's registers and spills from the ``ptxas`` report;
+   print each kernel instance's registers, spills and static shared memory
+   from the ``ptxas`` report, and the fs2 kernels' tile, lanes and dynamic
+   shared memory at the bench geometry;
 2. the per-tick motion kernel against its plain PyTorch version at the
    bench geometry (P=100,000 particles, L=64 landmark slots, M=16
    measurements), production and parity, from a state seeded by 3 plain
-   ticks;
-3. the chunked motion kernel against its plain version, C=16 ticks;
+   ticks: every output bit for bit;
+3. the chunked motion kernel against its plain version, C=16 ticks, bit for
+   bit;
 4. the motion main path: record a 300-tick synthetic log and replay it with
    ``replay_chunked`` on the GPU at P=100,000, L=64, chunk 16; the launch
    counters must show 18 chunked and 12 per-tick motion launches and no fs2
@@ -20,9 +23,10 @@ Phases, one line each (or more):
    CPU path;
 5. the per-tick FastSLAM 2.0 kernel against its plain version at the bench
    geometry, for both weightings (EKF pass, and evidence with the mode dial
-   at 0.37);
+   at 0.37): every output bit for bit;
 6. the chunked fs2 kernel against its plain version, C=16, rotation and
-   translation ticks, per-tick floors and the dial at 0.37 on some ticks;
+   translation ticks, per-tick floors and the dial at 0.37 on some ticks,
+   bit for bit;
 7. the fs2 main path: the same replay with ``proposal_mode="fastslam2"``;
    the counters must show 18 chunked and 12 per-tick fs2 launches and no
    motion launch, the ATE must be under 0.15 m, and a second run must give
@@ -30,7 +34,9 @@ Phases, one line each (or more):
 8. fs2 on the card against the CPU: 3 chunks of 8 and 4 tail ticks at
    P=256, L=16 with the same draws; estimates and final state within
    atol = rtol = 1e-4;
-9. kernel and plain times per tick, with CUDA events, and the ICP
+9. kernel and plain times per tick, with CUDA events; the fs2 kernels at
+   each launch geometry of ``FS2_GEOMETRIES`` (tile, lanes), each bit for
+   bit against the plain versions, then timed in turns; and the ICP
    nearest-neighbour kernel's time per call on the adaptive replay's batch
    of cloud pairs beside its plain version and ``torch.cdist`` + masked
    ``min``;
@@ -108,7 +114,7 @@ import time
 P, L, M, C = 100_000, 64, 16, 16
 # bench.py's measurement set: (range, bearing) pairs
 MEASUREMENTS = [(2.0 + 0.3 * i, -2.5 + 0.35 * i) for i in range(16)]
-TOL = 1e-4   # atol and rtol, kernel vs plain version on the card
+TOL = 1e-4   # atol and rtol, the card against the CPU (phase 8)
 DEVICE = "cuda"
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "fused_update_planes": ("fastslam_tpu_torch/csrc/fused_update.cu",
@@ -133,6 +139,9 @@ ICP = "icp_correspondences"
 RING = "ring_halo_exchange"
 PROBES = ("hbm_copy", "mul_add", "fma_chain")
 PROBE_TILE, PROBE_PASSES = 256, 256
+# the fs2 kernels' launch geometries timed in phase 9: (particles per tile,
+# lanes per particle)
+FS2_GEOMETRIES = ((128, 1), (64, 1), (64, 2), (64, 4), (32, 2), (32, 4), (32, 8))
 FMA_RTOL = 1e-6      # fma_chain vs its plain version: rare double roundings
 # shared memory streams 32 banks x 4 bytes per clock on each SM
 SMEM_BYTES_PER_CLOCK_PER_SM = 128
@@ -180,7 +189,8 @@ def compare(name, got, want, tol=TOL):
 
 
 def ptxas_summary(report: str):
-    """``kernel<flags>: N registers, S bytes spill stores`` per kernel."""
+    """``kernel<flags>: N registers, S B spill stores, S' B spill loads, B B
+    static shared memory`` per kernel instance."""
     out, name = [], None
     for line in report.splitlines():
         entry = re.search(r"entry function '(\S+)'", line)
@@ -193,13 +203,16 @@ def ptxas_summary(report: str):
                           if k in entry.group(1)), entry.group(1))
             name = (f"{m.group(1)}<{','.join(re.findall('Lb([01])E', m.group(2)))}>"
                     if m else plain)
-        spill = re.search(r"(\d+) bytes spill stores", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
-            out.append([name, None, int(spill.group(1))])
+            out.append([name, None, int(spill.group(1)), int(spill.group(2)), 0])
         regs = re.search(r"Used (\d+) registers", line)
         if regs and out and out[-1][0] == name:
             out[-1][1] = int(regs.group(1))
-    return [f"{n}: {r} registers, {s} B spill stores" for n, r, s in out]
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[-1][4] = int(smem.group(1)) if smem else 0
+    return [f"{n}: {r} registers, {s} B spill stores, {sl} B spill loads, {sm} B static "
+            f"shared memory" for n, r, s, sl, sm in out]
 
 
 def seeded_state(cfg, gen, ms):
@@ -229,33 +242,20 @@ def args_of(state):
             state.lm_cb, state.lm_cc, state.lm_cd, state.lm_count)
 
 
-def compare_update(tag, got, want, before_cnt):
-    """Counts must agree on all but 1e-4 * P particles; floats on the rest.
-    ``got``/``want``: (log_weights, mx, my, ca, cb, cc, cd, lm_count)."""
-    cnt_k, cnt_p = got[-1], want[-1]
-    mismatch = int((cnt_k != cnt_p).sum())
-    if mismatch > 1e-4 * P:
-        raise AssertionError(f"{tag}: lm_count differs on {mismatch} particles")
-    agree = cnt_k == cnt_p
-    err = 0.0
-    names = ("log_weights", "mx", "my", "ca", "cb", "cc", "cd")
-    for name, g, w in zip(names, got[:-1], want[:-1]):
-        if g is None:
+def compare_exact(tag, got, want):
+    """Every output of a kernel bit for bit against its plain version's
+    (``None`` on both sides where production has no cc plane); returns the
+    max abs error, 0.0."""
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None and g is None:
             continue
-        g, w = (g[..., agree], w[..., agree])
-        err = max(err, compare(f"{tag} {name}", g, w))
-    appends = int((cnt_p > before_cnt).sum())
-    return mismatch, err, appends, agree
-
-
-def compare_chunk(tag, got, want, before_cnt):
-    """Chunked outputs (tx, ty, tyaw, tlogw [C, P], planes, lm_count)."""
-    mismatch, err, appends, agree = compare_update(
-        tag, (got[3][-1],) + tuple(got[4:]), (want[3][-1],) + tuple(want[4:]),
-        before_cnt)
-    for name, g, w in zip(("tx", "ty", "tyaw", "tlogw"), got[:4], want[:4]):
-        err = max(err, compare(f"{tag} {name}", g[:, agree], w[:, agree]))
-    return mismatch, err, appends
+        if g is None or w is None or g.dtype != w.dtype or not torch.equal(g, w):
+            off = "a missing output" if g is None or w is None else \
+                f"{int((g != w).sum())} of {w.numel()} values"
+            raise AssertionError(f"{tag}: output {i} differs from the plain version in {off}")
+    return 0.0
 
 
 def chunk_motion():
@@ -292,11 +292,12 @@ def phase2(gen, ms):
         torch.cuda.synchronize()
         want = cuda_kernels.fused_update_planes_ref(poses, *args_of(sp),
                                                     ms.range_bearing, ms.valid, cfg)
-        mismatch, err, appends, _ = compare_update("per-tick", got, want, before)
+        err = compare_exact("per-tick", got, want)
         worst = max(worst, err)
         updated = int((want[0] != state.log_weights).sum())
-        phase(2, f"per-tick {'parity' if parity else 'production'}: lm_count "
-                 f"mismatches {mismatch}/{P}, max abs err {err:.3e}, "
+        appends = int((want[-1] > before).sum())
+        phase(2, f"per-tick {'parity' if parity else 'production'}: every output "
+                 f"(weights, planes, lm_count) equal to the plain version bit for bit, "
                  f"particles updated {updated}, appended {appends}")
     return worst
 
@@ -323,9 +324,10 @@ def phase3(gen, ms):
     want = cuda_kernels.fused_update_planes_multi_ref(
         state.poses, state.log_weights, *args_of(sp)[1:], z, zv, noisy_rot,
         noisy_trans, cfg)
-    mismatch, err, appends = compare_chunk("chunked", got, want, before)
-    phase(3, f"chunked C={C} production: lm_count mismatches {mismatch}/{P}, "
-             f"max abs err {err:.3e}, appended {appends}")
+    err = compare_exact("chunked", got, want)
+    appends = int((want[-1] > before).sum())
+    phase(3, f"chunked C={C} production: every output (trajectories, planes, lm_count) "
+             f"equal to the plain version bit for bit, appended {appends}")
     return err
 
 
@@ -426,14 +428,13 @@ def phase5(gen, ms):
         torch.cuda.synchronize()
         want = cuda_kernels.fused_fs2_planes_ref(pred, *args_of(sp), *tail,
                                                  evidence_scale=dial)
-        mismatch, err, appends, agree = compare_update("fs2 per-tick", got[1:],
-                                                       want[1:], before)
-        err = max(err, compare("fs2 per-tick poses", got[0][agree], want[0][agree]))
+        err = compare_exact("fs2 per-tick", got, want)
         worst = max(worst, err)
+        appends = int((want[-1] > before).sum())
         moved = float((want[0] - pred).abs().max())
-        phase(5, f"fs2 per-tick, evidence weights {evidence}, dial {dial}: lm_count "
-                 f"mismatches {mismatch}/{P}, max abs err {err:.3e}, appended "
-                 f"{appends}, max |sample - prediction| {moved:.3e}")
+        phase(5, f"fs2 per-tick, evidence weights {evidence}, dial {dial}: every output "
+                 f"(poses, weights, planes, lm_count) equal to the plain version bit for "
+                 f"bit, appended {appends}, max |sample - prediction| {moved:.3e}")
     return worst
 
 
@@ -472,10 +473,13 @@ def phase6(gen, ms):
         want = cuda_kernels.fused_fs2_planes_multi_ref(
             state.poses, state.log_weights, *args_of(sp)[1:], z, zv, noise, *prior,
             cfg, evidence_scale=dial)
-        mismatch, err, appends = compare_chunk("fs2 chunked", got, want, before)
+        err = compare_exact("fs2 chunked", got, want)
         worst = max(worst, err)
-        phase(6, f"fs2 chunked C={C}, evidence weights {evidence}: lm_count "
-                 f"mismatches {mismatch}/{P}, max abs err {err:.3e}, appended {appends}")
+        appends = int((want[-1] > before).sum())
+        full = int((want[-1] == L).sum())
+        phase(6, f"fs2 chunked C={C}, evidence weights {evidence}: every output "
+                 f"(trajectories, planes, lm_count) equal to the plain version bit for "
+                 f"bit, appended {appends}, {full} maps full at the end")
     return worst
 
 
@@ -705,6 +709,14 @@ def phase9(gen, ms, batch):
                  f"{b:.4f} ms/tick ({by}; per particle {slots / P:.2f} occupied "
                  f"slots read, {written / P:.2f} written) "
                  f"(P={P} L={L} M={M}{f' C={C}' if 'multi' in name else ''})")
+    for name, fn in (("fused_fs2_planes", fs2_tick(cuda_kernels.fused_fs2_planes)),
+                     ("fused_fs2_planes_multi", fs2_chunk(cuda_kernels.fused_fs2_planes_multi))):
+        us = profiled_device_us(lambda: fn(sk), f"{name}_kernel", reps=5)
+        ticks = C if "multi" in name else 1
+        phase(9, f"{name}: device time per launch under torch.profiler: "
+                 + (f"{us:.2f} us ({us / ticks / 1e3:.4f} ms/tick)" if us is not None
+                    else "no device event seen"))
+    fs2_geometry_sweep(sk, fs2_tick, fs2_chunk)
     device_us = profiled_device_us(lambda: cuda_kernels.icp_correspondences(pre, tgt, tv),
                                    "icp_nn_kernel")
     phase(9, f"{ICP}: device time per launch under torch.profiler: "
@@ -717,6 +729,49 @@ def phase9(gen, ms, batch):
              f"({bounds[ICP][1]}) ({pre.shape[0]} pairs, {pre.shape[1]} x "
              f"{tgt.shape[1]} points)")
     return times, bounds
+
+
+def at_geometry(geometry, run):
+    """``run()`` with the fs2 kernels launched at ``geometry`` (tile, lanes)
+    in place of the wrappers' own."""
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    saved = cuda_kernels.FS2_TILE, cuda_kernels.FS2_LANES
+    cuda_kernels.FS2_TILE, cuda_kernels.FS2_LANES = geometry
+    try:
+        return run()
+    finally:
+        cuda_kernels.FS2_TILE, cuda_kernels.FS2_LANES = saved
+
+
+def fs2_geometry_sweep(state, fs2_tick, fs2_chunk):
+    """The fs2 kernels at each launch geometry of FS2_GEOMETRIES: every
+    output bit for bit against the plain versions on a copy of ``state``,
+    then ms per tick, in turns over the geometries forward and backward."""
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    chosen = cuda_kernels.fs2_launch_geometry(L, M)
+    runs = {"per-tick": (fs2_tick(cuda_kernels.fused_fs2_planes),
+                         fs2_tick(cuda_kernels.fused_fs2_planes_ref), 20, 1),
+            "chunked": (fs2_chunk(cuda_kernels.fused_fs2_planes_multi),
+                        fs2_chunk(cuda_kernels.fused_fs2_planes_multi_ref), 5, C)}
+    for name, (kernel, plain, _, _) in runs.items():
+        want = plain(state.clone())
+        for g in FS2_GEOMETRIES:
+            compare_exact(f"fs2 {name} at {g}", at_geometry(g, lambda: kernel(state.clone())),
+                          want)
+    ms = {}
+    for g in FS2_GEOMETRIES + FS2_GEOMETRIES[::-1]:
+        for name, (kernel, _, reps, ticks) in runs.items():
+            ms.setdefault((g, name), []).append(
+                at_geometry(g, lambda: time_ms(lambda: kernel(state), reps)) / ticks)
+    for g in FS2_GEOMETRIES:
+        phase(9, f"fs2 launch geometry {g[0]} particles x {g[1]} lanes"
+                 f"{' (FS2_TILE, FS2_LANES)' if g == chosen else ''}: equal to the plain "
+                 f"versions bit for bit; "
+                 + ", ".join(f"{name} {min(ms[g, name]):.4f} ms/tick (runs "
+                             f"{' / '.join(f'{x:.4f}' for x in ms[g, name])})"
+                             for name in runs))
 
 
 def adaptive_config(**kw):
@@ -1330,6 +1385,11 @@ def main() -> int:
     phase(1, f"built {', '.join(p.name for p in _build.sources())} in {build_s:.1f} s")
     for line in regs:
         phase(1, f"ptxas: {line}")
+    from fastslam_tpu_torch.core.cuda_kernels import fs2_launch_geometry, fs2_shared_bytes
+
+    tile, lanes = fs2_launch_geometry(L, M)
+    phase(1, f"fs2 kernels at L={L}, M={M}: tiles of {tile} particles x {lanes} lanes, "
+             f"{fs2_shared_bytes(L, M, tile)} B of dynamic shared memory per block")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     ms = pad_measurements(FastSLAMConfig(max_measurements=M), MEASUREMENTS, DEVICE)

@@ -417,8 +417,11 @@ def run_driver(
                     if metrics:
                         metrics.write("health", tick=ticks, issues=rep.issues)
                     if "nan_or_inf_state" in rep.issues:
-                        runner.set_state_blocks(monitor.recover(
-                            runner.state, est, checkpoint_path=checkpoint_path))
+                        state, generator = monitor.recover(
+                            runner.state, est, checkpoint_path=checkpoint_path)
+                        runner.set_state_blocks(state)
+                        if generator is not None:   # the checkpoint's stream
+                            runner._generator = generator
         if metrics:
             with hook_time.phase("metrics"):
                 metrics.write("tick", tick=ticks, distance=ev.distance,

@@ -26,9 +26,12 @@ Counterpart of ``fastslam_tpu/core/pallas_kernels.py``:
 per-tick motion kernel: it transposes to planes and back, as the JAX
 package's wrapper of the same name does.
 
-The filter kernels run one thread per particle and share their
-per-measurement device code (``csrc/measurement.cuh``); the ICP kernel runs
-one thread per source point; the exchange kernel one thread per 16 bytes.
+The motion kernels run one thread per particle over the planes in device
+memory; the fs2 kernels stage a tile of particles' planes in shared memory
+for the tick (the chunk), with a few lanes per particle
+(:func:`fs2_launch_geometry`); the four share their per-measurement device
+code (``csrc/measurement.cuh``).  The ICP kernel runs one thread per source
+point; the exchange kernel one thread per 16 bytes.
 ``core/_build.py`` compiles and loads them.
 
 Each wrapper dispatches on the device of the tensors it is given:
@@ -83,6 +86,10 @@ HBM_COPY_BUFFERS = 7
 HBM_COPY_TILE = 1024
 # shared memory a block may opt into (csrc/probes.cu SMEM_OPT_IN_LIMIT)
 SMEM_OPT_IN_BYTES = 232_448
+# the fs2 kernels' launch geometry: particles per block (the tile staged in
+# shared memory) and lanes per particle, chosen by timing the candidates at
+# P = 100,000, L = 64, M = 16 (chip_smoke.py phase 9, PERF.md §6)
+FS2_TILE, FS2_LANES = 32, 4
 # the fma_chain probe's constants: x <- fma(x, a, b), 8 per pass
 FMA_CHAIN_A = 1.0000001
 FMA_CHAIN_B = 1e-7
@@ -909,15 +916,47 @@ def _motion_table(rot_eff, trans_eff, c: int, device):
 
 
 def _threads_per_block(l: int, m: int) -> int:
-    """Threads per block such that the block's det/validity plane
-    (``L * threads`` floats) and the tick's measurement table fit in
-    ``_SMEM_BYTES`` of shared memory."""
+    """Threads per block of the motion kernels, such that the block's
+    det/validity plane (``L * threads`` floats) and the tick's measurement
+    table fit in ``_SMEM_BYTES`` of shared memory."""
     table = 5 * m * 4 + _STATIC_SMEM_BYTES
     threads = min(_MAX_THREADS, (_SMEM_BYTES - table) // (4 * l) // 32 * 32)
     if threads < 32:
         raise ValueError(f"{l} landmark slots and {m} measurements do not fit "
                          "a 32-thread block's shared memory")
     return threads
+
+
+def fs2_shared_bytes(l: int, m: int, tile: int) -> int:
+    """Dynamic shared memory of an fs2 block of ``tile`` particles
+    (``csrc/fused_fs2.cu``: ``tile_shared_bytes``): six ``[L, tile]`` planes
+    (mx, my, ca, cb, cd, 1/det), the written bits ``[ceil(L / 32), tile]``,
+    the counts ``[tile]``, the measurement table ``[M, 4]`` and its valid
+    flags ``[M]``."""
+    return 4 * (6 * l * tile + (l + 31) // 32 * tile + tile + 5 * m)
+
+
+def fs2_launch_geometry(l: int, m: int) -> Tuple[int, int]:
+    """``(tile, lanes)`` of the fs2 kernels at L slots and M measurements:
+    ``tile`` particles per block, staged in shared memory, and ``lanes``
+    threads per particle, which split its association scan.
+
+    ``(FS2_TILE, FS2_LANES)``, the tile halved (down to 32) until the block
+    fits the 227 KB a block may opt into; raises when no tile of 32 fits.
+    The kernels take tiles of a multiple of 32 particles with 1, 2, 4 or 8
+    lanes each (``csrc/fused_fs2.cu``: ``checked_shared_bytes``)."""
+    tile, lanes = FS2_TILE, FS2_LANES
+    if not 1 <= l <= 256:
+        raise ValueError(f"the fs2 kernels take 1 to 256 landmark slots (the packed "
+                         f"key's 8 slot bits), got {l}")
+    fits = lambda t: fs2_shared_bytes(l, m, t) + _STATIC_SMEM_BYTES <= SMEM_OPT_IN_BYTES
+    while tile > 32 and not fits(tile):
+        tile = max(32, tile // 2 // 32 * 32)
+    if not fits(tile):
+        raise ValueError(f"{l} landmark slots and {m} measurements do not fit a "
+                         f"32-particle fs2 tile in {SMEM_OPT_IN_BYTES} bytes of shared "
+                         f"memory ({fs2_shared_bytes(l, m, 32)} needed)")
+    return tile, lanes
 
 
 def _gate_args(config: FastSLAMConfig):
@@ -1107,6 +1146,7 @@ def fused_fs2_planes(pred_poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb, lm_cc,
     from fastslam_tpu_torch.core import _build
 
     m = z.shape[0]
+    tile, lanes = fs2_launch_geometry(l, m)
     z4, zvalid, mlast = _measurement_table(z, z_valid)
     prior = _prior_table(s_t2, s_r2, fxy, evidence_scale, None, device)
     cyaw = torch.cos(pred_poses[:, 2]).contiguous()
@@ -1119,7 +1159,7 @@ def fused_fs2_planes(pred_poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb, lm_cc,
         _ptr(lm_cd), _ptr(lm_count), _ptr(z4), _ptr(zvalid), _ptr(mlast),
         _ptr(prior), ctypes.c_int(p), ctypes.c_int(l), ctypes.c_int(m),
         ctypes.c_int(int(config.fs2_evidence_weights)), *_gate_args(config),
-        ctypes.c_int(_threads_per_block(l, m)),
+        ctypes.c_int(tile), ctypes.c_int(lanes),
     )
     LAUNCHES["fused_fs2_planes"] += 1
     return (poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb, None, lm_cd, lm_count)
@@ -1158,6 +1198,7 @@ def fused_fs2_planes_multi(poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb,
     _check_noise(noise, (c, 3, p), device)
     from fastslam_tpu_torch.core import _build
 
+    tile, lanes = fs2_launch_geometry(l, m)
     z4, zvalid, mlast = _measurement_table(z, z_valid)
     motion = _motion_table(rot_eff, trans_eff, c, device)
     prior = _prior_table(s_t2, s_r2, fxy, evidence_scale, c, device)
@@ -1172,7 +1213,7 @@ def fused_fs2_planes_multi(poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb,
         _ptr(mlast), _ptr(traj[0]), _ptr(traj[1]), _ptr(traj[2]), _ptr(traj[3]),
         ctypes.c_int(p), ctypes.c_int(l), ctypes.c_int(m), ctypes.c_int(c),
         ctypes.c_int(int(config.fs2_evidence_weights)), *_gate_args(config),
-        ctypes.c_int(_threads_per_block(l, m)),
+        ctypes.c_int(tile), ctypes.c_int(lanes),
     )
     LAUNCHES["fused_fs2_planes_multi"] += 1
     return (traj[0], traj[1], traj[2], traj[3], lm_mx, lm_my, lm_ca, lm_cb, None,

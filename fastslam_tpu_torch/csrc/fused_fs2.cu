@@ -1,8 +1,9 @@
 // Fused FastSLAM 2.0 tick of the particle filter, for Hopper (sm_90a).
 //
-// Replaces fastslam_tpu/core/pallas_kernels.py:_fused_fs2_kernel (one tick,
-// fused_fs2_planes) and :_fused_fs2_multi_kernel (C ticks with in-kernel
-// mean-motion prediction, fused_fs2_planes_multi).  Per tick and particle:
+// Replaces fastslam_tpu/core/pallas_kernels.py:fused_fs2_planes (its body
+// _fused_fs2_kernel, one tick) and :fused_fs2_planes_multi
+// (_fused_fs2_multi_kernel, C ticks with in-kernel mean-motion prediction).
+// Per tick and particle:
 //
 //   1. accumulate the pose information (Lambda, eta) over the tick's
 //      measurements at the PREDICTED pose: production packed-argmin
@@ -17,20 +18,48 @@
 //      covariance: no cc plane).  It adds the measurement likelihood to the
 //      weight unless EVIDENCE, where the proposal's evidence carries it.
 //
-// Design, as fused_update.cu: one thread per particle over the [L, P]
-// planes (coalesced rows, updated in place); the tick's measurement table,
-// valid flags, trip count, and motion and prior rows in shared memory; each
-// thread's det/validity plane as a [L, blockDim] shared array, read by the
-// accumulation pass and kept current by the EKF pass.  The chunked kernel
-// carries the pose, its (cos, sin) and the planes across its C ticks.
+// Design.  A block owns a tile of T particles, with G lanes (threads) per
+// particle.  It stages the tile's five production planes (mx, my, ca, cb, cd)
+// and 1/det(cov) of every occupied slot in dynamic shared memory, laid out
+// [plane][slot][T], only the slots below the tile's largest count, with
+// plain coalesced 4-byte loads (any P; rows of the [L, P] planes need not be
+// 16-byte aligned).  Both passes of every measurement then read and
+// write shared memory only, and an append writes its new slot there.  At the
+// end the block writes back, coalesced, only the slots that a measurement
+// updated or appended (a bit per slot and particle in shared memory), and
+// the rows.  The chunked kernel keeps the tile resident across its C ticks:
+// the planes go back once per chunk, the trajectory rows every tick.  The
+// TPU kernels held the [L, tile] planes in VMEM for the tick and the chunk
+// the same way.
 //
-// What bounds it on an H100: every measurement reads the planes twice, once
-// to associate in the accumulation pass and once to associate again in the
-// EKF pass, so about twice the motion kernel's stream: at P = 100,000, L = 64
-// and M = 16, up to ~4 GB of the 128 MB of planes per tick, streamed from
-// device memory since it exceeds the 50 MB L2.  Making it fast (particle
-// tiles in shared memory, one association shared by both passes where exact)
-// is later work.
+// The G lanes of a particle split its association scan: lane g takes slots
+// g, g + G, ..., and the lanes take the smallest packed key with
+// __shfl_xor_sync.  A key is the distance with the slot in its low 8 bits,
+// and an integer minimum does not depend on order, so the split is exact.
+// The rest (the proposal terms, the 3x3 solve and sample, the EKF update)
+// runs identically on all G lanes; lane 0 stores.  Slot l of particle i sits
+// at column i ^ ((l mod G) * 32 / G) of its row, so the G slots that the
+// lanes of a warp's particles read together fall in distinct banks.  The
+// stored 1/det (-1 for an unusable slot) takes the divide out of the scan.
+//
+// What bounds it on an H100, at P = 100,000, L = 64, M = 16 and a full map:
+// device memory carries the staging (the 128 MB of planes read once per
+// tick, once per chunk in the chunked kernel; ~0.05 ms at the measured copy
+// rate) and the write-back of the updated slots.  The rest is the
+// association in shared memory: per particle and tick 2 x 16 scans of 64
+// slots, 6 floats and ~25 instructions per slot, ~4.9 GB in all.  Measured
+// (chip_smoke.py phase 9, device time): 0.43 ms per tick one tick at a time,
+// 0.36 ms per tick in a chunk of 16; the difference is about the staging.
+// So the scans' shared-memory loads and arithmetic bound it, at ~14 TB/s,
+// not device memory.
+//
+// Launch geometry (core/cuda_kernels.py:fs2_launch_geometry): T = 32
+// particles and G = 4 lanes, 128 threads and 49,856 bytes per block, 4
+// blocks (16 warps) per SM, timed fastest of (128, 1) ... (32, 8) at that
+// geometry (PERF.md §6).  One lane per particle leaves the scan's
+// shared-memory latency exposed (64 x 1 costs 1.5x); 8 lanes multiply the
+// per-particle work every lane repeats.  At L = 256 a tile of 32 still fits
+// (196,608 bytes of planes).
 //
 // Arithmetic follows the plain PyTorch versions (core/cuda_kernels.py) op
 // for op; build with -fmad=false.
@@ -38,6 +67,198 @@
 #include "measurement.cuh"
 
 namespace {
+
+constexpr int kPlanes = 6;                  // mx, my, ca, cb, cd, 1/det(cov)
+constexpr int kSmemOptInLimit = 232448;     // 227 KB a block may opt into
+constexpr int kStaticSmemBytes = 64;        // the kernels' __shared__ scalars
+
+// One particle's column of the block's tile (a view for apply_measurement,
+// see measurement.cuh: DeviceColumn).  Slot l of plane k sits at
+// t[k * LT + at(l)]; the scan is split over the particle's G lanes.
+struct TileColumn {
+  float* t;            // [kPlanes][L][T]
+  unsigned* written;   // [ceil(L / 32)][T]: bit l of column i set once slot l is stored
+  int LT, T, i, g, G, swz_mask, swz_shift;
+  unsigned lanes;      // the particle's lanes within its warp
+
+  __device__ __forceinline__ int at(const int l) const {
+    return l * T + (i ^ ((l & swz_mask) << swz_shift));
+  }
+
+  __device__ __forceinline__ int argmin(const float wx, const float wy, const int cnt) const {
+    // slots at and above the count are never usable (-1 det at staging, and
+    // an append fills slot cnt first), so the scan stops there.  Lane g's
+    // slots g, g + G, ... share one swizzle: their offsets step by G rows.
+    int kmin = kInvalidKey;
+    int o = at(g);
+#pragma unroll 4
+    for (int l = g; l < cnt; l += G, o += G * T) {
+      const float inv = t[5 * LT + o];
+      const float cb = t[3 * LT + o];
+      const int key = slot_key(t[o], t[LT + o], t[2 * LT + o], cb, cb, t[4 * LT + o], inv,
+                               wx, wy, l);
+      kmin = min(kmin, inv >= 0.0f ? key : kInvalidKey);
+    }
+    for (int off = 1; off < G; off <<= 1) {
+      kmin = min(kmin, __shfl_xor_sync(lanes, kmin, off));
+    }
+    return kmin;
+  }
+
+  template <bool PARITY>
+  __device__ __forceinline__ void load(const int l, float& mu_x, float& mu_y, float& a,
+                                       float& b, float& c, float& d) const {
+    static_assert(!PARITY, "the fs2 kernels run in production mode");
+    const int o = at(l);
+    mu_x = t[o];
+    mu_y = t[LT + o];
+    a = t[2 * LT + o];
+    b = t[3 * LT + o];
+    c = b;
+    d = t[4 * LT + o];
+  }
+
+  template <bool PARITY>
+  __device__ __forceinline__ void store(const int l, const float new_mx, const float new_my,
+                                        const float a, const float b, const float,
+                                        const float d, const float det) {
+    __syncwarp(lanes);   // every lane has read the slot
+    if (g != 0) return;
+    const int o = at(l);
+    t[o] = new_mx;
+    t[LT + o] = new_my;
+    t[2 * LT + o] = a;
+    t[3 * LT + o] = b;
+    t[4 * LT + o] = d;
+    t[5 * LT + o] = det > 0.0f ? 1.0f / det : -1.0f;
+    written[(l >> 5) * T + i] |= 1u << (l & 31);
+  }
+
+  __device__ __forceinline__ void sync() const { __syncwarp(lanes); }
+};
+
+// The block's dynamic shared memory: the tile [kPlanes][L][T] | written bits
+// [ceil(L / 32)][T] | counts [T] | z table [M][4] | valid [M]
+struct TileBlock {
+  float* t;
+  unsigned* written;
+  int* cnt;
+  float* z;
+  int* zv;
+};
+
+inline size_t tile_shared_bytes(const int L, const int M, const int T) {
+  return (static_cast<size_t>(kPlanes) * L * T + static_cast<size_t>((L + 31) / 32) * T + T
+          + 5 * static_cast<size_t>(M)) * sizeof(float);
+}
+
+__device__ __forceinline__ TileBlock carve(float* smem, const int L, const int M,
+                                           const int T) {
+  TileBlock b;
+  b.t = smem;
+  b.written = reinterpret_cast<unsigned*>(smem + static_cast<size_t>(kPlanes) * L * T);
+  b.cnt = reinterpret_cast<int*>(b.written + ((L + 31) / 32) * T);
+  b.z = reinterpret_cast<float*>(b.cnt + T);
+  b.zv = reinterpret_cast<int*>(b.z + 4 * M);
+  return b;
+}
+
+// The particle tile and lane layout of one thread.
+struct Lanes {
+  int T, G, i, g, swz_mask, swz_shift;
+  unsigned lanes;
+};
+
+__device__ __forceinline__ Lanes lanes_of(const int G) {
+  Lanes w;
+  w.G = G;
+  w.T = blockDim.x / G;
+  w.i = threadIdx.x / G;
+  w.g = threadIdx.x & (G - 1);
+  w.swz_mask = G - 1;
+  w.swz_shift = 6 - __ffs(G);   // log2(32 / G)
+  const int lane = threadIdx.x & 31;
+  w.lanes = (G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u)) << (lane & ~(G - 1));
+  return w;
+}
+
+__device__ __forceinline__ TileColumn column(const TileBlock& b, const Lanes& w, const int L) {
+  return TileColumn{b.t, b.written, L * w.T, w.T, w.i, w.g, w.G, w.swz_mask, w.swz_shift,
+                    w.lanes};
+}
+
+// Stage the tile of particles p0 .. p0 + T - 1; every thread of the block
+// takes part.  Counts (0 past P) go to b.cnt and their largest to `rows`;
+// then the planes of the slots below it, and 1/det(cov) of an occupied slot
+// with a positive det, else -1 (det as the plain version's _initial_detp).
+// Clears the written bits.  Ends with a barrier.
+__device__ __forceinline__ void stage_tile(
+    const TileBlock& b, int& rows, const Lanes& w, const size_t p0, const int P,
+    const int L, const float* __restrict__ mx, const float* __restrict__ my,
+    const float* __restrict__ ca, const float* __restrict__ cb,
+    const float* __restrict__ cd, const int* __restrict__ cnt_in) {
+  const int T = w.T;
+  const int LT = L * T;
+  if (threadIdx.x == 0) rows = 0;
+  for (int k = threadIdx.x; k < ((L + 31) / 32) * T; k += blockDim.x) b.written[k] = 0u;
+  __syncthreads();
+  for (int c = threadIdx.x; c < T; c += blockDim.x) {
+    const int n = p0 + c < static_cast<size_t>(P) ? cnt_in[p0 + c] : 0;
+    b.cnt[c] = n;
+    atomicMax(&rows, n);
+  }
+  __syncthreads();
+  // thread (row r, column c) of the block takes rows r, r + G, ... of
+  // column c: coalesced rows, one swizzle per thread
+  const int staged = rows;
+  const int c = threadIdx.x % T;
+  const int r = threadIdx.x / T;
+  const size_t p = p0 + c;
+  if (p < static_cast<size_t>(P)) {
+    const int n = b.cnt[c];
+    int o = r * T + (c ^ (r << w.swz_shift));
+#pragma unroll 4
+    for (int l = r; l < staged; l += w.G, o += w.G * T) {
+      const size_t q = static_cast<size_t>(l) * P + p;
+      const float a = ca[q];
+      const float bb = cb[q];
+      const float d = cd[q];
+      b.t[o] = mx[q];
+      b.t[LT + o] = my[q];
+      b.t[2 * LT + o] = a;
+      b.t[3 * LT + o] = bb;
+      b.t[4 * LT + o] = d;
+      const float det = a * d - bb * bb;
+      b.t[5 * LT + o] = (l < n && det > 0.0f) ? 1.0f / det : -1.0f;
+    }
+  }
+  __syncthreads();
+}
+
+// Write back the slots that a measurement stored, once every particle of
+// the tile is done (a barrier before; `rows` is the tile's largest count by
+// then, raised by each particle's final count).
+__device__ __forceinline__ void write_back(
+    const TileBlock& b, const int rows, const Lanes& w, const size_t p0, const int P,
+    const int L, float* __restrict__ mx, float* __restrict__ my, float* __restrict__ ca,
+    float* __restrict__ cb, float* __restrict__ cd) {
+  const int T = w.T;
+  const int LT = L * T;
+  const int c = threadIdx.x % T;   // rows r, r + G, ... of column c, as staged
+  const int r = threadIdx.x / T;
+  const size_t p = p0 + c;
+  if (p >= static_cast<size_t>(P)) return;
+  int o = r * T + (c ^ (r << w.swz_shift));
+  for (int l = r; l < rows; l += w.G, o += w.G * T) {
+    if (!((b.written[(l >> 5) * T + c] >> (l & 31)) & 1u)) continue;
+    const size_t q = static_cast<size_t>(l) * P + p;
+    mx[q] = b.t[o];
+    my[q] = b.t[LT + o];
+    ca[q] = b.t[2 * LT + o];
+    cb[q] = b.t[3 * LT + o];
+    cd[q] = b.t[4 * LT + o];
+  }
+}
 
 // the pose information (upper triangle of Lambda), eta and the evidence
 // log-weight of one particle
@@ -50,30 +271,22 @@ struct Acc {
 // One measurement of the proposal accumulation at the predicted pose.
 template <bool EVIDENCE>
 __device__ __forceinline__ void accumulate_proposal(
-    const size_t p, const size_t P, const int L,
-    const float* __restrict__ mx, const float* __restrict__ my,
-    const float* __restrict__ ca, const float* cb,
-    const float* __restrict__ cd, const float* __restrict__ detp, const int stride,
+    const TileColumn& s, const int cnt,
     const float px, const float py, const float yaw, const float cyaw, const float syaw,
     const float p00, const float p01, const float p11, const float s_r2,
     const float scale, const float dist_z, const float bearing_z, const float cos_b,
     const float sin_b, const bool z_ok, Acc& acc, const Params& prm) {
   const float wx = px + dist_z * (cyaw * cos_b - syaw * sin_b);
   const float wy = py + dist_z * (syaw * cos_b + cyaw * sin_b);
-  const int kmin = packed_argmin_key(p, P, L, mx, my, ca, cb, cb, cd, detp, stride,
-                                     wx, wy);
+  const int kmin = s.argmin(wx, wy, cnt);
   const bool has_match = kmin <= prm.gate_thr;
   bool use = has_match && z_ok;
 
   // the matched landmark, zeros without a match (gated below)
   float mu_x = 0.0f, mu_y = 0.0f, a = 0.0f, b = 0.0f, d = 0.0f;
   if (has_match) {
-    const size_t o = static_cast<size_t>(kmin & 0xFF) * P + p;
-    mu_x = mx[o];
-    mu_y = my[o];
-    a = ca[o];
-    b = cb[o];
-    d = cd[o];
+    float c_unused;
+    s.load<false>(kmin & 0xFF, mu_x, mu_y, a, b, c_unused, d);
   }
   const float c = b;
 
@@ -205,10 +418,7 @@ __device__ __forceinline__ void solve_sample_pose(
 // predicted pose, on exit the sampled one.  prior_s: (s_t2, s_r2, fxy, dial).
 template <bool EVIDENCE>
 __device__ __forceinline__ void fs2_tick(
-    const size_t p, const size_t P, const int L,
-    float* __restrict__ mx, float* __restrict__ my, float* __restrict__ ca,
-    float* cb, float* __restrict__ cd, float* __restrict__ detp,
-    const int stride, const float* z_s, const int* zv_s, const int mtrip,
+    TileColumn& s, const int L, const float* z_s, const int* zv_s, const int mtrip,
     const float* prior_s, const float n0, const float n1, const float n2,
     float& px, float& py, float& yaw, float& cyaw, float& syaw,
     int& cnt, float& logw, const Params& prm) {
@@ -227,126 +437,125 @@ __device__ __forceinline__ void fs2_tick(
           0.0f, 0.0f, 0.0f, 0.0f};
 
   for (int m = 0; m < mtrip; ++m) {
-    accumulate_proposal<EVIDENCE>(p, P, L, mx, my, ca, cb, cd, detp, stride,
-                                  px, py, yaw, cyaw, syaw, p00, p01, p11, s_r2, dial,
-                                  z_s[4 * m], z_s[4 * m + 1], z_s[4 * m + 2],
+    accumulate_proposal<EVIDENCE>(s, cnt, px, py, yaw, cyaw, syaw, p00, p01, p11, s_r2,
+                                  dial, z_s[4 * m], z_s[4 * m + 1], z_s[4 * m + 2],
                                   z_s[4 * m + 3], zv_s[m] > 0, acc, prm);
   }
   if (EVIDENCE) logw = logw + acc.logw_add;
 
   float x, y, th;
   solve_sample_pose(acc, px, py, yaw, n0, n1, n2, x, y, th);
-  float s, c;
-  sin_cos_poly(th, s, c);
+  float sn, cs;
+  sin_cos_poly(th, sn, cs);
   px = x;
   py = y;
   yaw = th;
-  cyaw = c;
-  syaw = s;
+  cyaw = cs;
+  syaw = sn;
 
   for (int m = 0; m < mtrip; ++m) {
-    apply_measurement<false, !EVIDENCE>(p, P, L, mx, my, ca, cb, cb, cd, detp, stride,
-                                        px, py, yaw, cyaw, syaw, z_s[4 * m],
+    apply_measurement<false, !EVIDENCE>(s, L, px, py, yaw, cyaw, syaw, z_s[4 * m],
                                         z_s[4 * m + 1], z_s[4 * m + 2], z_s[4 * m + 3],
                                         zv_s[m] > 0, cnt, logw, prm);
   }
 }
 
-// One tick from the caller's predicted poses; noise is [P, 3].
+// One tick from the caller's predicted poses; noise is [P, 3].  A block of
+// T * G threads owns T particles.
 template <bool EVIDENCE>
 __global__ void fused_fs2_planes_kernel(
     const float* __restrict__ pred, const float* __restrict__ cyaw_in,
     const float* __restrict__ syaw_in, float* __restrict__ logw_io,
     const float* __restrict__ noise, float* __restrict__ poses_out,
     float* __restrict__ mx, float* __restrict__ my, float* __restrict__ ca,
-    float* cb, float* __restrict__ cd, int* __restrict__ cnt_io,
+    float* __restrict__ cb, float* __restrict__ cd, int* __restrict__ cnt_io,
     const float* __restrict__ z4, const int* __restrict__ zvalid,
     const int* __restrict__ mlast, const float* __restrict__ prior,
-    const int P, const int L, const int M, const Params prm) {
+    const int P, const int L, const int M, const int G, const Params prm) {
   extern __shared__ float smem[];
-  float* detp_s = smem;
-  float* z_s = smem + static_cast<size_t>(L) * blockDim.x;
-  int* zv_s = reinterpret_cast<int*>(z_s + 4 * M);
-  __shared__ int mtrip;
+  __shared__ int mtrip, rows;
   __shared__ float prior_s[4];
+  const Lanes w = lanes_of(G);
+  const TileBlock b = carve(smem, L, M, w.T);
+  const size_t p0 = static_cast<size_t>(blockIdx.x) * w.T;
 
-  for (int i = threadIdx.x; i < 4 * M; i += blockDim.x) z_s[i] = z4[i];
-  for (int i = threadIdx.x; i < M; i += blockDim.x) zv_s[i] = zvalid[i];
+  for (int i = threadIdx.x; i < 4 * M; i += blockDim.x) b.z[i] = z4[i];
+  for (int i = threadIdx.x; i < M; i += blockDim.x) b.zv[i] = zvalid[i];
   if (threadIdx.x < 4) prior_s[threadIdx.x] = prior[threadIdx.x];
   if (threadIdx.x == 0) mtrip = min(mlast[0], M);
+  stage_tile(b, rows, w, p0, P, L, mx, my, ca, cb, cd, cnt_io);
+
+  const size_t p = p0 + w.i;
+  if (p < static_cast<size_t>(P)) {
+    TileColumn s = column(b, w, L);
+    int cnt = b.cnt[w.i];
+    float logw = logw_io[p];
+    float px = pred[3 * p];
+    float py = pred[3 * p + 1];
+    float yaw = pred[3 * p + 2];
+    float cyaw = cyaw_in[p];
+    float syaw = syaw_in[p];
+    fs2_tick<EVIDENCE>(s, L, b.z, b.zv, mtrip, prior_s, noise[3 * p], noise[3 * p + 1],
+                       noise[3 * p + 2], px, py, yaw, cyaw, syaw, cnt, logw, prm);
+    if (w.g == 0) {
+      poses_out[3 * p] = px;
+      poses_out[3 * p + 1] = py;
+      poses_out[3 * p + 2] = yaw;
+      logw_io[p] = logw;
+      cnt_io[p] = cnt;
+      atomicMax(&rows, cnt);
+    }
+  }
   __syncthreads();
-
-  const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= static_cast<size_t>(P)) return;
-  const int stride = blockDim.x;
-  float* detp = detp_s + threadIdx.x;
-
-  int cnt = cnt_io[p];
-  float logw = logw_io[p];
-  float px = pred[3 * p];
-  float py = pred[3 * p + 1];
-  float yaw = pred[3 * p + 2];
-  float cyaw = cyaw_in[p];
-  float syaw = syaw_in[p];
-  init_detp(p, P, L, cnt, ca, cb, cb, cd, detp, stride);
-
-  fs2_tick<EVIDENCE>(p, P, L, mx, my, ca, cb, cd, detp, stride, z_s, zv_s, mtrip,
-                     prior_s, noise[3 * p], noise[3 * p + 1], noise[3 * p + 2],
-                     px, py, yaw, cyaw, syaw, cnt, logw, prm);
-  poses_out[3 * p] = px;
-  poses_out[3 * p + 1] = py;
-  poses_out[3 * p + 2] = yaw;
-  logw_io[p] = logw;
-  cnt_io[p] = cnt;
+  write_back(b, rows, w, p0, P, L, mx, my, ca, cb, cd);
 }
 
 // C ticks, each with the mean-motion prediction in-kernel: the yaw wraps by
 // conditional subtraction and (cos, sin) advance by angle addition from the
 // tick's exact (cos, sin) of rot_eff, not renormalized.  noise is [C, 3, P];
-// motion and prior are [C, 4].  Every thread of a block takes part in
-// loading each tick's tables, so threads past P stay until the end.
+// motion and prior are [C, 4].  The tile stays in shared memory for the C
+// ticks; every thread of a block takes part in loading each tick's tables,
+// so threads past P stay until the end.
 template <bool EVIDENCE>
 __global__ void fused_fs2_planes_multi_kernel(
     const float* __restrict__ poses, const float* __restrict__ cyaw_in,
     const float* __restrict__ syaw_in, const float* __restrict__ logw_in,
     const float* __restrict__ noise, const float* __restrict__ motion,
     const float* __restrict__ prior, float* __restrict__ mx, float* __restrict__ my,
-    float* __restrict__ ca, float* cb, float* __restrict__ cd,
+    float* __restrict__ ca, float* __restrict__ cb, float* __restrict__ cd,
     int* __restrict__ cnt_io, const float* __restrict__ z4,
     const int* __restrict__ zvalid, const int* __restrict__ mlast,
     float* __restrict__ tx, float* __restrict__ ty, float* __restrict__ tyaw,
     float* __restrict__ tlogw, const int P, const int L, const int M, const int C,
-    const Params prm) {
+    const int G, const Params prm) {
   extern __shared__ float smem[];
-  float* detp_s = smem;
-  float* z_s = smem + static_cast<size_t>(L) * blockDim.x;
-  int* zv_s = reinterpret_cast<int*>(z_s + 4 * M);
-  __shared__ int mtrip;
+  __shared__ int mtrip, rows;
   __shared__ float tab_s[8];  // motion (rot, trans, cos rot, sin rot) | prior
+  const Lanes w = lanes_of(G);
+  const TileBlock b = carve(smem, L, M, w.T);
+  const size_t p0 = static_cast<size_t>(blockIdx.x) * w.T;
+  stage_tile(b, rows, w, p0, P, L, mx, my, ca, cb, cd, cnt_io);
 
-  const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t p = p0 + w.i;
   const bool active = p < static_cast<size_t>(P);
-  const int stride = blockDim.x;
-  float* detp = detp_s + threadIdx.x;
-
+  TileColumn s = column(b, w, L);
   int cnt = 0;
   float logw = 0.0f, px = 0.0f, py = 0.0f, yaw = 0.0f, cyaw = 0.0f, syaw = 0.0f;
   if (active) {
-    cnt = cnt_io[p];
+    cnt = b.cnt[w.i];
     logw = logw_in[p];
     px = poses[3 * p];
     py = poses[3 * p + 1];
     yaw = poses[3 * p + 2];
     cyaw = cyaw_in[p];
     syaw = syaw_in[p];
-    init_detp(p, P, L, cnt, ca, cb, cb, cd, detp, stride);
   }
 
   for (int k = 0; k < C; ++k) {
     __syncthreads();  // the previous tick's tables are no longer read
     const float* zk = z4 + static_cast<size_t>(k) * 4 * M;
-    for (int i = threadIdx.x; i < 4 * M; i += blockDim.x) z_s[i] = zk[i];
-    for (int i = threadIdx.x; i < M; i += blockDim.x) zv_s[i] = zvalid[k * M + i];
+    for (int i = threadIdx.x; i < 4 * M; i += blockDim.x) b.z[i] = zk[i];
+    for (int i = threadIdx.x; i < M; i += blockDim.x) b.zv[i] = zvalid[k * M + i];
     if (threadIdx.x < 4) {
       tab_s[threadIdx.x] = motion[4 * k + threadIdx.x];
       tab_s[4 + threadIdx.x] = prior[4 * k + threadIdx.x];
@@ -366,15 +575,35 @@ __global__ void fused_fs2_planes_multi_kernel(
 
     const size_t kp = static_cast<size_t>(k) * P + p;
     const float* nk = noise + static_cast<size_t>(k) * 3 * P + p;
-    fs2_tick<EVIDENCE>(p, P, L, mx, my, ca, cb, cd, detp, stride, z_s, zv_s, mtrip,
-                       tab_s + 4, nk[0], nk[P], nk[2 * static_cast<size_t>(P)],
-                       px, py, yaw, cyaw, syaw, cnt, logw, prm);
-    tx[kp] = px;
-    ty[kp] = py;
-    tyaw[kp] = yaw;
-    tlogw[kp] = logw;
+    fs2_tick<EVIDENCE>(s, L, b.z, b.zv, mtrip, tab_s + 4, nk[0], nk[P],
+                       nk[2 * static_cast<size_t>(P)], px, py, yaw, cyaw, syaw, cnt, logw,
+                       prm);
+    if (w.g == 0) {
+      tx[kp] = px;
+      ty[kp] = py;
+      tyaw[kp] = yaw;
+      tlogw[kp] = logw;
+    }
   }
-  if (active) cnt_io[p] = cnt;
+  if (active && w.g == 0) {
+    cnt_io[p] = cnt;
+    atomicMax(&rows, cnt);
+  }
+  __syncthreads();
+  write_back(b, rows, w, p0, P, L, mx, my, ca, cb, cd);
+}
+
+// The block's dynamic shared memory for a launch geometry of `tile`
+// particles and `lanes` lanes per particle, or 0 if the kernels do not take
+// it (core/cuda_kernels.py:fs2_launch_geometry checks the same).
+size_t checked_shared_bytes(const int L, const int M, const int tile, const int lanes) {
+  const size_t smem = tile_shared_bytes(L, M, tile);
+  const bool lanes_ok = lanes == 1 || lanes == 2 || lanes == 4 || lanes == 8;
+  if (L < 1 || L > 256 || M < 0 || tile < 32 || tile % 32 != 0 || !lanes_ok
+      || tile * lanes > 1024 || smem + kStaticSmemBytes > kSmemOptInLimit) {
+    return 0;
+  }
+  return smem;
 }
 
 }  // namespace
@@ -386,24 +615,23 @@ int fused_fs2_planes_launch(
     const float* noise, float* poses_out, float* mx, float* my, float* ca, float* cb,
     float* cd, int* cnt, const float* z4, const int* zvalid, const int* mlast,
     const float* prior, int P, int L, int M, int evidence, float gate2, int gate_thr,
-    float meas_noise, float default_cov, float default_cov2, int threads,
+    float meas_noise, float default_cov, float default_cov2, int tile, int lanes,
     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = checked_shared_bytes(L, M, tile, lanes);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0) return 0;
   const Params prm{gate2, gate_thr, meas_noise, default_cov, default_cov2};
-  const dim3 grid((P + threads - 1) / threads);
-  const size_t smem = shared_bytes(L, M, threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (evidence) {
-    fused_fs2_planes_kernel<true><<<grid, threads, smem, s>>>(
-        pred, cyaw, syaw, logw, noise, poses_out, mx, my, ca, cb, cd, cnt, z4, zvalid,
-        mlast, prior, P, L, M, prm);
-  } else {
-    fused_fs2_planes_kernel<false><<<grid, threads, smem, s>>>(
-        pred, cyaw, syaw, logw, noise, poses_out, mx, my, ca, cb, cd, cnt, z4, zvalid,
-        mlast, prior, P, L, M, prm);
-  }
+  const dim3 grid((P + tile - 1) / tile);
+  auto kernel = evidence ? fused_fs2_planes_kernel<true> : fused_fs2_planes_kernel<false>;
+  // above 48 KB a block's dynamic shared memory needs the opt-in, per instance
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, tile * lanes, smem, static_cast<cudaStream_t>(stream)>>>(
+      pred, cyaw, syaw, logw, noise, poses_out, mx, my, ca, cb, cd, cnt, z4, zvalid, mlast,
+      prior, P, L, M, lanes, prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -413,24 +641,23 @@ int fused_fs2_planes_multi_launch(
     float* mx, float* my, float* ca, float* cb, float* cd, int* cnt, const float* z4,
     const int* zvalid, const int* mlast, float* tx, float* ty, float* tyaw,
     float* tlogw, int P, int L, int M, int C, int evidence, float gate2, int gate_thr,
-    float meas_noise, float default_cov, float default_cov2, int threads,
+    float meas_noise, float default_cov, float default_cov2, int tile, int lanes,
     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = checked_shared_bytes(L, M, tile, lanes);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0 || C == 0) return 0;
   const Params prm{gate2, gate_thr, meas_noise, default_cov, default_cov2};
-  const dim3 grid((P + threads - 1) / threads);
-  const size_t smem = shared_bytes(L, M, threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (evidence) {
-    fused_fs2_planes_multi_kernel<true><<<grid, threads, smem, s>>>(
-        poses, cyaw, syaw, logw, noise, motion, prior, mx, my, ca, cb, cd, cnt, z4,
-        zvalid, mlast, tx, ty, tyaw, tlogw, P, L, M, C, prm);
-  } else {
-    fused_fs2_planes_multi_kernel<false><<<grid, threads, smem, s>>>(
-        poses, cyaw, syaw, logw, noise, motion, prior, mx, my, ca, cb, cd, cnt, z4,
-        zvalid, mlast, tx, ty, tyaw, tlogw, P, L, M, C, prm);
-  }
+  const dim3 grid((P + tile - 1) / tile);
+  auto kernel = evidence ? fused_fs2_planes_multi_kernel<true>
+                         : fused_fs2_planes_multi_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, tile * lanes, smem, static_cast<cudaStream_t>(stream)>>>(
+      poses, cyaw, syaw, logw, noise, motion, prior, mx, my, ca, cb, cd, cnt, z4, zvalid,
+      mlast, tx, ty, tyaw, tlogw, P, L, M, C, lanes, prm);
   return static_cast<int>(cudaGetLastError());
 }
 

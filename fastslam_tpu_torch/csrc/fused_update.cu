@@ -7,7 +7,8 @@
 // first match with the robot-frame quirk in parity), the 2x2 landmark EKF,
 // the append of an unmatched measurement, and the log-likelihood weight.
 //
-// Design: one thread per particle.  The landmark planes are [L, P] row-major,
+// Design: one thread per particle, reaching its slots through a DeviceColumn
+// view (measurement.cuh).  The landmark planes are [L, P] row-major,
 // so slot l of neighbouring particles sits at neighbouring addresses and every
 // row access of a warp is one coalesced 128-byte transaction.  Each thread
 // owns its particle's column, so the planes are updated in place.  The
@@ -21,7 +22,7 @@
 // planes are 5 x 64 x 100,000 x 4 B = 128 MB.  The association pass re-reads
 // them for every measurement, up to ~2 GB per tick at M = 16, more than the
 // 50 MB L2 holds, so the kernel streams device memory.  Staging a particle
-// tile's planes in shared memory is later work.
+// tile's planes in shared memory, as fused_fs2.cu does, is later work.
 //
 // Arithmetic follows the plain PyTorch version (core/cuda_kernels.py) op for
 // op; the per-measurement device code is shared with the FastSLAM 2.0
@@ -65,12 +66,12 @@ __global__ void fused_update_planes_kernel(
   const float cyaw = cyaw_in[p];
   const float syaw = syaw_in[p];
   init_detp(p, P, L, cnt, ca, cb, cc, cd, detp, stride);
+  DeviceColumn col{mx, my, ca, cb, cc, cd, detp, stride, static_cast<size_t>(P), p, L};
 
   for (int m = 0; m < mtrip; ++m) {
-    apply_measurement<PARITY, true>(p, P, L, mx, my, ca, cb, cc, cd, detp, stride,
-                              px, py, yaw, cyaw, syaw, z_s[4 * m], z_s[4 * m + 1],
-                              z_s[4 * m + 2], z_s[4 * m + 3], zv_s[m] > 0, cnt,
-                              logw, prm);
+    apply_measurement<PARITY, true>(col, L, px, py, yaw, cyaw, syaw, z_s[4 * m],
+                                    z_s[4 * m + 1], z_s[4 * m + 2], z_s[4 * m + 3],
+                                    zv_s[m] > 0, cnt, logw, prm);
   }
   logw_io[p] = logw;
   cnt_io[p] = cnt;
@@ -114,6 +115,7 @@ __global__ void fused_update_planes_multi_kernel(
     syaw = syaw_in[p];
     init_detp(p, P, L, cnt, ca, cb, cc, cd, detp, stride);
   }
+  DeviceColumn col{mx, my, ca, cb, cc, cd, detp, stride, static_cast<size_t>(P), p, L};
 
   for (int k = 0; k < C; ++k) {
     __syncthreads();  // the previous tick's table is no longer read
@@ -138,10 +140,9 @@ __global__ void fused_update_planes_multi_kernel(
     py = py + ntrans * syaw;
 
     for (int m = 0; m < mtrip; ++m) {
-      apply_measurement<PARITY, true>(p, P, L, mx, my, ca, cb, cc, cd, detp, stride,
-                                px, py, yaw, cyaw, syaw, z_s[4 * m], z_s[4 * m + 1],
-                                z_s[4 * m + 2], z_s[4 * m + 3], zv_s[m] > 0, cnt,
-                                logw, prm);
+      apply_measurement<PARITY, true>(col, L, px, py, yaw, cyaw, syaw, z_s[4 * m],
+                                      z_s[4 * m + 1], z_s[4 * m + 2], z_s[4 * m + 3],
+                                      zv_s[m] > 0, cnt, logw, prm);
     }
     tx[kp] = px;
     ty[kp] = py;

@@ -1,6 +1,8 @@
 // Per-particle device code shared by the fused kernels (fused_update.cu,
-// fused_fs2.cu): polynomial trig, the packed-argmin association and one
-// measurement through association, 2x2 landmark EKF, append and weighting.
+// fused_fs2.cu): polynomial trig, the packed-argmin key and one measurement
+// through association, 2x2 landmark EKF, append and weighting, over a view
+// of the particle's landmark slots (in device memory, or staged in shared
+// memory).
 //
 // Arithmetic follows the plain PyTorch versions (core/cuda_kernels.py) op for
 // op.  Build with -fmad=false so no multiply-add is contracted; divisions and
@@ -93,40 +95,115 @@ __device__ __forceinline__ void sin_cos_poly(float x, float& s, float& c) {
   c = sign_c * (octant ? sp : cp);
 }
 
-// Production association: the smallest packed key (distance bits with 8 LSBs
-// dropped, OR the slot) over the usable slots; kInvalidKey if none.
-__device__ __forceinline__ int packed_argmin_key(
-    const size_t p, const size_t P, const int L,
-    const float* __restrict__ mx, const float* __restrict__ my,
-    const float* __restrict__ ca, const float* cb, const float* cc,
-    const float* __restrict__ cd, const float* __restrict__ detp, const int stride,
-    const float wx, const float wy) {
-  int kmin = kInvalidKey;
-  for (int l = 0; l < L; ++l) {
-    const float dtp = detp[l * stride];
-    if (!(dtp > 0.0f)) continue;
-    const size_t o = static_cast<size_t>(l) * P + p;
-    const float dx = mx[o] - wx;
-    const float dy = my[o] - wy;
-    const float d2f = dx * (cd[o] * dx - cb[o] * dy) + dy * (-cc[o] * dx + ca[o] * dy);
-    const float dist2 = clamp_min(d2f * (1.0f / dtp), 0.0f);
-    const int key = (__float_as_int(dist2) & ~0xFF) | l;
-    kmin = min(kmin, key);
-  }
-  return kmin;
+// Production association key of one usable slot: the squared Mahalanobis
+// distance of (wx, wy) from the slot's landmark (clamped at 0) as float bits,
+// 8 LSBs dropped, OR the slot; the smallest key is the nearest slot, ties to
+// the lower one.  inv_det is 1 / det(cov) of the slot.
+__device__ __forceinline__ int slot_key(
+    const float mx, const float my, const float ca, const float cb, const float cc,
+    const float cd, const float inv_det, const float wx, const float wy, const int l) {
+  const float dx = mx - wx;
+  const float dy = my - wy;
+  const float d2f = dx * (cd * dx - cb * dy) + dy * (-cc * dx + ca * dy);
+  const float dist2 = clamp_min(d2f * inv_det, 0.0f);
+  return (__float_as_int(dist2) & ~0xFF) | l;
 }
 
-// One measurement for one particle.  cc aliases cb in production mode, where
-// the covariance stays symmetric and no cc plane exists.  detp points at this
-// thread's det/validity entries, `stride` floats apart.  WEIGHT adds the
-// measurement log-likelihood to logw; the FastSLAM 2.0 kernels turn it off
-// when the proposal's evidence carries the weight.
-template <bool PARITY, bool WEIGHT>
+// One particle's landmark slots in the [L, P] planes in device memory (the
+// motion kernels), slot l at l * P + p, with the thread's det/validity
+// entries (det(cov) of an occupied slot, -1 beyond the count) in shared
+// memory, `stride` floats apart.  cc aliases cb in production mode, where
+// the covariance stays symmetric and no cc plane exists.
+//
+// apply_measurement() reaches a particle's slots through such a view; the
+// fs2 kernels give it a particle tile staged in shared memory instead
+// (fused_fs2.cu: TileColumn).  A view offers
+//   argmin(wx, wy, cnt)           production: the smallest packed key over
+//                                 the usable slots, kInvalidKey if none;
+//   first_hit(qx, qy, gate2)      parity: the first usable slot under the
+//                                 gate, L if none;
+//   load<PARITY>(l, ...)          slot l's mean and covariance;
+//   store<PARITY>(l, ..., det)    write slot l and its det(cov);
+//   sync()                        make the stores visible to the particle's
+//                                 next loads.
+struct DeviceColumn {
+  float* __restrict__ mx;
+  float* __restrict__ my;
+  float* __restrict__ ca;
+  float* cb;
+  float* cc;
+  float* __restrict__ cd;
+  float* __restrict__ detp;
+  int stride;
+  size_t P, p;
+  int L;
+
+  __device__ __forceinline__ size_t at(const int l) const {
+    return static_cast<size_t>(l) * P + p;
+  }
+
+  __device__ __forceinline__ int argmin(const float wx, const float wy, int) const {
+    int kmin = kInvalidKey;
+    for (int l = 0; l < L; ++l) {
+      const float dtp = detp[l * stride];
+      if (!(dtp > 0.0f)) continue;
+      const size_t o = at(l);
+      kmin = min(kmin, slot_key(mx[o], my[o], ca[o], cb[o], cc[o], cd[o], 1.0f / dtp,
+                                wx, wy, l));
+    }
+    return kmin;
+  }
+
+  __device__ __forceinline__ int first_hit(const float qx, const float qy,
+                                           const float gate2) const {
+    for (int l = 0; l < L; ++l) {
+      const float dtp = detp[l * stride];
+      if (!(dtp > 0.0f)) continue;
+      const size_t o = at(l);
+      const float dx = mx[o] - qx;
+      const float dy = my[o] - qy;
+      const float d2f = dx * (cd[o] * dx - cb[o] * dy) + dy * (-cc[o] * dx + ca[o] * dy);
+      if (d2f < gate2 * dtp) return l;
+    }
+    return L;
+  }
+
+  template <bool PARITY>
+  __device__ __forceinline__ void load(const int l, float& mu_x, float& mu_y, float& a,
+                                       float& b, float& c, float& d) const {
+    const size_t o = at(l);
+    mu_x = mx[o];
+    mu_y = my[o];
+    a = ca[o];
+    b = cb[o];
+    c = PARITY ? cc[o] : b;
+    d = cd[o];
+  }
+
+  template <bool PARITY>
+  __device__ __forceinline__ void store(const int l, const float new_mx, const float new_my,
+                                        const float a, const float b, const float c,
+                                        const float d, const float det) {
+    const size_t o = at(l);
+    mx[o] = new_mx;
+    my[o] = new_my;
+    ca[o] = a;
+    cb[o] = b;
+    if (PARITY) cc[o] = c;
+    cd[o] = d;
+    detp[l * stride] = det;
+  }
+
+  __device__ __forceinline__ void sync() const {}
+};
+
+// One measurement for one particle, over its slots in the view `s` (see
+// DeviceColumn).  WEIGHT adds the measurement log-likelihood to logw; the
+// FastSLAM 2.0 kernels turn it off when the proposal's evidence carries the
+// weight.
+template <bool PARITY, bool WEIGHT, class Slots>
 __device__ __forceinline__ void apply_measurement(
-    const size_t p, const size_t P, const int L,
-    float* __restrict__ mx, float* __restrict__ my, float* __restrict__ ca,
-    float* cb, float* cc, float* __restrict__ cd,
-    float* __restrict__ detp, const int stride,
+    Slots& s, const int L,
     const float px, const float py, const float yaw, const float cyaw, const float syaw,
     const float dist_z, const float bearing_z, const float cos_b, const float sin_b,
     const bool z_ok, int& cnt, float& logw, const Params& prm) {
@@ -136,27 +213,12 @@ __device__ __forceinline__ void apply_measurement(
 
   int idx;
   bool has_match;
-  if (PARITY) {
+  if constexpr (PARITY) {
     // first hit under the gate, against the robot-frame observation
-    const float qx = dist_z * cos_b;
-    const float qy = dist_z * sin_b;
-    idx = L;
-    for (int l = 0; l < L; ++l) {
-      const float dtp = detp[l * stride];
-      if (!(dtp > 0.0f)) continue;
-      const size_t o = static_cast<size_t>(l) * P + p;
-      const float dx = mx[o] - qx;
-      const float dy = my[o] - qy;
-      const float d2f = dx * (cd[o] * dx - cb[o] * dy) + dy * (-cc[o] * dx + ca[o] * dy);
-      if (d2f < prm.gate2 * dtp) {
-        idx = l;
-        break;
-      }
-    }
+    idx = s.first_hit(dist_z * cos_b, dist_z * sin_b, prm.gate2);
     has_match = idx < L;
   } else {
-    const int kmin = packed_argmin_key(p, P, L, mx, my, ca, cb, cc, cd, detp, stride,
-                                       wx, wy);
+    const int kmin = s.argmin(wx, wy, cnt);
     has_match = kmin <= prm.gate_thr;
     idx = kmin & 0xFF;
   }
@@ -164,13 +226,8 @@ __device__ __forceinline__ void apply_measurement(
   const bool do_update = has_match && z_ok;
   const bool do_append = !has_match && cnt < L && z_ok;
   if (do_update) {
-    const size_t o = static_cast<size_t>(idx) * P + p;
-    const float mu_x = mx[o];
-    const float mu_y = my[o];
-    const float a = ca[o];
-    const float b = cb[o];
-    const float c = PARITY ? cc[o] : b;
-    const float d = cd[o];
+    float mu_x, mu_y, a, b, c, d;
+    s.template load<PARITY>(idx, mu_x, mu_y, a, b, c, d);
 
     const float dx = mu_x - px;
     const float dy = mu_y - py;
@@ -228,13 +285,9 @@ __device__ __forceinline__ void apply_measurement(
       new_c = off;
     }
 
-    mx[o] = mu_x + k00 * nu_r + k01 * nu_b;
-    my[o] = mu_y + k10 * nu_r + k11 * nu_b;
-    ca[o] = new_a;
-    cb[o] = new_b;
-    if (PARITY) cc[o] = new_c;
-    cd[o] = new_d;
-    detp[idx * stride] = new_a * new_d - new_b * new_c;
+    s.template store<PARITY>(idx, mu_x + k00 * nu_r + k01 * nu_b,
+                             mu_y + k10 * nu_r + k11 * nu_b, new_a, new_b, new_c, new_d,
+                             new_a * new_d - new_b * new_c);
     if (WEIGHT) {
       const float maha = i00 * nu_r * nu_r + (i01 + i10) * nu_r * nu_b + i11 * nu_b * nu_b;
       const float log_lik =
@@ -242,16 +295,11 @@ __device__ __forceinline__ void apply_measurement(
       logw = logw + log_lik;
     }
   } else if (do_append) {
-    const size_t o = static_cast<size_t>(cnt) * P + p;
-    mx[o] = wx;
-    my[o] = wy;
-    ca[o] = prm.default_cov;
-    cb[o] = 0.0f;
-    if (PARITY) cc[o] = 0.0f;
-    cd[o] = prm.default_cov;
-    detp[cnt * stride] = prm.default_cov2;
+    s.template store<PARITY>(cnt, wx, wy, prm.default_cov, 0.0f, 0.0f, prm.default_cov,
+                             prm.default_cov2);
     cnt += 1;
   }
+  s.sync();
 }
 
 // det/validity plane of one particle: det(cov) of occupied slots, -1 beyond
@@ -265,7 +313,8 @@ __device__ __forceinline__ void init_detp(
   }
 }
 
-// Dynamic shared memory of a block: detp [L][threads] | z table [M][4] | valid [M]
+// Dynamic shared memory of a motion block: detp [L][threads] | z table [M][4] |
+// valid [M]
 inline size_t shared_bytes(int L, int M, int threads) {
   return (static_cast<size_t>(L) * threads + 5 * static_cast<size_t>(M)) * sizeof(float);
 }

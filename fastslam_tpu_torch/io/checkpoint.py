@@ -15,7 +15,11 @@ state: :func:`save_checkpoint` stores the generator's state
 (``torch_generator_state``) and :func:`load_checkpoint` returns a generator
 that continues its stream.  A JAX checkpoint carries a threefry key
 (``rng_key_data``) instead; the port seeds a fresh generator from it, so the
-resumed draws differ from the ones JAX would take.
+resumed draws differ from the ones JAX would take.  So that the JAX
+package's loader, which reads that key unconditionally, takes a port
+checkpoint too, :func:`save_checkpoint` also writes a key: the generator's
+initial seed split into two 32-bit words, as ``jax.random.PRNGKey`` splits a
+64-bit seed (zeros without a generator).
 """
 
 from __future__ import annotations
@@ -38,16 +42,25 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _threefry_key(generator: Optional[torch.Generator]) -> np.ndarray:
+    """``uint32[2]``: the generator's initial seed as (high word, low word),
+    the key ``jax.random.PRNGKey`` makes of a 64-bit seed; zeros for None."""
+    seed = 0 if generator is None else generator.initial_seed() % 2 ** 64
+    return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
 def save_checkpoint(path: str, state, *, iteration: int = 0, robot_pose=None,
                     extra: Optional[dict] = None,
                     generator: Optional[torch.Generator] = None) -> None:
-    """Atomically write the filter state (either layout), the loop state and,
-    when given, the generator's state."""
+    """Atomically write the filter state (either layout), the loop state, a
+    threefry key for the JAX package's loader and, when given, the
+    generator's state."""
     arrays = {
         "format_version": np.int32(_FORMAT_VERSION),
         "poses": _host(state.poses),
         "log_weights": _host(state.log_weights),
         "lm_count": _host(state.lm_count),
+        "rng_key_data": _threefry_key(generator),
         "iteration": np.int64(iteration),
         "robot_pose": np.asarray(robot_pose if robot_pose is not None else np.zeros(3)),
     }
@@ -95,8 +108,9 @@ def _generator(z, device: torch.device) -> Optional[torch.Generator]:
 def load_checkpoint(path: str, device: torch.device | str = "cuda"):
     """Returns ``(state, meta)``: the state in the layout it was saved in, on
     ``device``, and ``meta`` with ``iteration``, ``robot_pose``, ``extra``
-    and ``generator`` (a :class:`torch.Generator` on ``device``, or None
-    when the checkpoint saved none)."""
+    and ``generator`` (a :class:`torch.Generator` on ``device``: the saved
+    one, else one seeded from the threefry key; None when the checkpoint
+    holds neither)."""
     device = torch.device(device)
     with np.load(path) as z:
         version = int(z["format_version"])

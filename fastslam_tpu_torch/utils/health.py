@@ -17,14 +17,16 @@ of the log-weights, the float64 sum of squared weights, the mean map fill)
 and fetches the three numbers in one small copy, where the JAX monitor
 copies every log-weight and count to the host; the issues, thresholds and
 Neff (to rounding of the float64 sum) are the JAX monitor's.
-:meth:`HealthMonitor.recover` resumes from a checkpoint, or re-initializes
-every particle at the last finite pose with empty maps.
+:meth:`HealthMonitor.recover` resumes from a checkpoint (its first
+``num_particles`` particles and its generator, as JAX's recovery returns the
+checkpoint's key), or re-initializes every particle at the last finite pose
+with empty maps.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,24 +92,43 @@ class HealthMonitor:
         return HealthReport(ok=not issues, issues=issues, neff=float(neff),
                             map_fill_frac=fill, step_jump_m=jump)
 
-    def recover(self, state, pose, checkpoint_path: Optional[str] = None) -> FilterState:
-        """A usable blocks-layout state on ``state``'s device: the checkpoint's
-        if one is given and loads, else every particle re-initialized at the
-        last finite pose with uniform weights and empty maps.  The caller's
-        random generator carries on as it was."""
+    def recover(self, state, pose, checkpoint_path: Optional[str] = None
+                ) -> Tuple[FilterState, Optional[torch.Generator]]:
+        """A usable blocks-layout state on ``state``'s device and the
+        generator to draw from next.
+
+        From a checkpoint, if one is given and loads: its first
+        ``config.num_particles`` particles (a JAX checkpoint of the planes
+        engine holds P rounded up to the lane tile; JAX's ``from_planes``
+        keeps the same first ones) and its generator.  A checkpoint with
+        fewer particles than the config raises.  Otherwise every particle is
+        re-initialized at the last finite pose with uniform weights and
+        empty maps, and the generator is None: the caller's carries on."""
         device = state.device
         if checkpoint_path:
             from fastslam_tpu_torch.io.checkpoint import load_checkpoint
 
             try:
-                st, _ = load_checkpoint(checkpoint_path, device)
-                return from_planes(st) if isinstance(st, PlanesState) else st
+                st, meta = load_checkpoint(checkpoint_path, device)
             except (OSError, ValueError):
-                pass
+                st = None
+            if st is not None:
+                return self._first_particles(st), meta["generator"]
         pose = np.asarray(pose)
         if not np.isfinite(pose).all():
             pose = self._prev_pose if self._prev_pose is not None else np.zeros(3)
         st = init_state(self.config, device)
         poses = torch.as_tensor(np.asarray(pose), dtype=st.poses.dtype, device=device)
         self._degenerate_streak = 0
-        return st.replace(poses=poses.broadcast_to(st.poses.shape).clone())
+        return st.replace(poses=poses.broadcast_to(st.poses.shape).clone()), None
+
+    def _first_particles(self, state) -> FilterState:
+        """The first ``config.num_particles`` particles of a loaded state, in
+        the blocks layout."""
+        n, have = self.config.num_particles, state.num_particles
+        if have < n:
+            raise ValueError(f"the checkpoint holds {have} particles, fewer than the "
+                             f"config's num_particles = {n}")
+        if isinstance(state, PlanesState):
+            return from_planes(state, n)
+        return FilterState(**{k: v[:n] for k, v in state.__dict__.items()})

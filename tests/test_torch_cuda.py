@@ -137,15 +137,15 @@ def fs2_config(evidence):
                           fs2_evidence_weights=evidence)
 
 
-def assert_fs2_close(got, want):
-    """fs2 kernel vs plain: floats at atol = rtol = 1e-4, counts exact."""
+def assert_fs2_equal(got, want):
+    """fs2 kernel vs plain: every output bit for bit (-fmad=false, the same
+    operations in the same order)."""
+    assert len(got) == len(want)
     for g, w in zip(got, want):
         if w is None:
             assert g is None
-        elif w.dtype == torch.int32:
-            assert torch.equal(g, w)
         else:
-            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+            assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("evidence", [False, True])
@@ -168,7 +168,7 @@ def test_fs2_per_tick_kernel_matches_plain(device, evidence):
     want = cuda_kernels.fused_fs2_planes_ref(pred, *planes(sp), ms.range_bearing,
                                              ms.valid, d.noise, s_t2, s_r2, fxy, cfg,
                                              evidence_scale=0.37)
-    assert_fs2_close(got, want)
+    assert_fs2_equal(got, want)
     assert bool((want[-1] > state.lm_count).any())    # appended
     assert bool((want[1] != state.log_weights).any())  # weighted
 
@@ -196,7 +196,109 @@ def test_fs2_chunked_kernel_matches_plain(device, evidence):
     want = cuda_kernels.fused_fs2_planes_multi_ref(state.poses, state.log_weights,
                                                    *planes(sp)[1:], z, zv, *args,
                                                    evidence_scale=dial)
-    assert_fs2_close(got, want)
+    assert_fs2_equal(got, want)
+
+
+FS2_P, FS2_M, FS2_C = 1000, 16, 6      # 1000 particles: a ragged last tile
+FS2_Z = [(1.0 + 0.35 * k, -2.8 + 0.37 * k) for k in range(FS2_M)]
+
+
+def ragged_fs2_inputs(device, l, evidence, seed):
+    """A planes state whose tiles mix every count from 0 to L (a fifth of the
+    particles two slots short of a full map, some full), slots 0..7 holding
+    landmarks at the first measurements' world points (matches), the rest
+    scattered (appends); the chunk's draws, prior and dial."""
+    rng = np.random.default_rng(seed)
+    p = FS2_P
+    cfg = FastSLAMConfig(num_particles=p, max_landmarks=l, max_measurements=FS2_M,
+                         parity_mode=False, proposal_mode="fastslam2",
+                         fs2_evidence_weights=evidence)
+    counts = rng.integers(0, l + 1, p)
+    counts[::5] = max(l - 2, 0)
+    counts[::13] = l
+    means = rng.uniform(-9.0, 9.0, (2, l, p))
+    for k in range(min(l, 8)):
+        r, b = FS2_Z[2 * k]
+        means[:, k] = np.array([r * np.cos(b), r * np.sin(b)])[:, None] \
+            + rng.normal(0.0, 0.03, (2, p))
+    a, d = rng.uniform(0.02, 0.2, (2, l, p))
+    b = rng.uniform(-0.01, 0.01, (l, p))
+    f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    state = init_planes_state(cfg, device).replace(
+        poses=f32(rng.normal(0.0, 0.05, (p, 3))),
+        log_weights=f32(np.log(rng.dirichlet(np.ones(p)))),
+        lm_mx=f32(means[0]), lm_my=f32(means[1]), lm_ca=f32(a), lm_cb=f32(b),
+        lm_cd=f32(d), lm_count=torch.from_numpy(counts.astype(np.int32)).to(device))
+    z = torch.tensor(FS2_Z, dtype=torch.float32, device=device)
+    zv = torch.ones(FS2_M, dtype=torch.bool, device=device)
+    zv[3] = False                                      # an interior hole
+    noise = f32(rng.normal(size=(FS2_C, 3, p)))
+    rotating = torch.arange(FS2_C, device=device) % 3 == 2
+    prior = kernels.fs2_prior_scalars(
+        torch.where(rotating, 0.3, 0.0), torch.where(rotating, 0.0, 0.4), cfg,
+        (torch.linspace(0.005, 0.02, FS2_C, device=device),
+         torch.linspace(0.01, 0.003, FS2_C, device=device)))
+    dial = torch.where(torch.arange(FS2_C, device=device) % 2 == 1, 0.37, 1.0)
+    return cfg, state, z, zv, noise, prior, dial
+
+
+def run_fs2(kernel, fn, state, z, zv, noise, prior, dial, cfg):
+    """One call of a per-tick (the chunk's first tick) or chunked fs2
+    function on a copy of ``state``."""
+    s = state.clone()
+    if kernel == "tick":
+        zero = torch.zeros(FS2_P, device=s.poses.device)
+        pred = kernels.propagate_particles(s.poses, 0.0, 0.4, zero, zero)
+        return fn(pred, *planes(s), z, zv, noise[0].t().contiguous(), prior[2][0],
+                  prior[3][0], prior[4][0], cfg, evidence_scale=dial[0])
+    c = noise.shape[0]
+    return fn(s.poses, s.log_weights, *planes(s)[1:], z[None].expand(c, -1, -1).contiguous(),
+              zv[None].expand(c, -1).contiguous(), noise, *prior, cfg,
+              evidence_scale=dial)
+
+
+FS2_FUNCTIONS = {"tick": (cuda_kernels.fused_fs2_planes, cuda_kernels.fused_fs2_planes_ref),
+                 "chunk": (cuda_kernels.fused_fs2_planes_multi,
+                           cuda_kernels.fused_fs2_planes_multi_ref)}
+
+
+@pytest.mark.parametrize("evidence", [False, True])
+@pytest.mark.parametrize("l", [16, 64, 256])
+@pytest.mark.parametrize("kernel", ["tick", "chunk"])
+def test_fs2_kernels_equal_plain_on_ragged_mixed_tiles(device, kernel, l, evidence):
+    """The staged tiles bit for bit: a ragged last tile, tiles of mixed
+    counts (only the slots below a tile's largest count are staged), L up
+    to the packed key's 256 (a tile of 32), and (in the chunk) particles
+    that fill their map to L: appends into slots never staged, then the
+    full map's refusal."""
+    cfg, state, z, zv, noise, prior, dial = ragged_fs2_inputs(device, l, evidence, l)
+    first = state.lm_count[:cuda_kernels.fs2_launch_geometry(l, FS2_M)[0]]
+    assert int(first.min()) < int(first.max())          # one tile, mixed counts
+    kernel_fn, plain_fn = FS2_FUNCTIONS[kernel]
+    got = run_fs2(kernel, kernel_fn, state, z, zv, noise, prior, dial, cfg)
+    torch.cuda.synchronize()
+    want = run_fs2(kernel, plain_fn, state, z, zv, noise, prior, dial, cfg)
+    assert_fs2_equal(got, want)
+    before, after = state.lm_count, want[-1]
+    assert bool((after > before).any())                 # appended
+    if kernel == "chunk":
+        filled = (before < l) & (after == l)
+        assert bool(filled.any())                        # a map filled to L
+        assert bool(((before == l) & (after == l)).any())  # full maps refused appends
+
+
+@pytest.mark.parametrize("geometry", [(32, 1), (32, 4), (64, 1), (64, 4), (128, 2),
+                                      (32, 8)])
+@pytest.mark.parametrize("kernel", ["tick", "chunk"])
+def test_fs2_kernels_equal_plain_at_every_geometry(device, monkeypatch, kernel, geometry):
+    """The results do not depend on the tile or the lanes per particle."""
+    cfg, state, z, zv, noise, prior, dial = ragged_fs2_inputs(device, 64, True, 7)
+    kernel_fn, plain_fn = FS2_FUNCTIONS[kernel]
+    monkeypatch.setattr(cuda_kernels, "FS2_TILE", geometry[0])
+    monkeypatch.setattr(cuda_kernels, "FS2_LANES", geometry[1])
+    got = run_fs2(kernel, kernel_fn, state, z, zv, noise, prior, dial, cfg)
+    torch.cuda.synchronize()
+    assert_fs2_equal(got, run_fs2(kernel, plain_fn, state, z, zv, noise, prior, dial, cfg))
 
 
 def small_log(num_ticks=52):

@@ -343,8 +343,9 @@ def test_recover_from_a_checkpoint(tmp_path):
     checkpoint.save_checkpoint(path, to_planes(state, port_config(
         JaxConfig(num_particles=32, max_landmarks=4, parity_mode=False))))
     cfg = port_config(JaxConfig(num_particles=32, max_landmarks=4, parity_mode=False))
-    got = HealthMonitor(cfg).recover(state, np.array([np.nan, 0, 0]), checkpoint_path=path)
-    assert isinstance(got, FilterState)
+    got, generator = HealthMonitor(cfg).recover(state, np.array([np.nan, 0, 0]),
+                                                checkpoint_path=path)
+    assert isinstance(got, FilterState) and isinstance(generator, torch.Generator)
     for name, v in state.__dict__.items():
         assert torch.equal(getattr(got, name), v), name
 
@@ -365,7 +366,8 @@ def test_recover_reinitializes_at_the_last_finite_pose(tmp_path, missing_checkpo
         m._degenerate_streak = 5
     path = str(tmp_path / "absent.npz") if missing_checkpoint else None
     want = want_m.recover(jstate, np.array([np.nan, 0, 0]), checkpoint_path=path)
-    got = got_m.recover(state, np.array([np.nan, 0, 0]), checkpoint_path=path)
+    got, generator = got_m.recover(state, np.array([np.nan, 0, 0]), checkpoint_path=path)
+    assert generator is None    # the caller's generator carries on
     assert got_m._degenerate_streak == want_m._degenerate_streak == 0
     for name in ("poses", "log_weights", "lm_mean", "lm_cov", "lm_count"):
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
