@@ -7,12 +7,15 @@ Phases, one line each (or more):
 0. environment: the card's name and power limit (exits non-zero without a GPU);
 1. build the CUDA kernels from ``fastslam_tpu_torch/csrc`` with nvcc, and
    print each kernel instance's registers, spills and static shared memory
-   from the ``ptxas`` report, and the fs2 kernels' tile, lanes and dynamic
-   shared memory at the bench geometry;
-2. the per-tick motion kernel against its plain PyTorch version at the
-   bench geometry (P=100,000 particles, L=64 landmark slots, M=16
-   measurements), production and parity, from a state seeded by 3 plain
-   ticks: every output bit for bit;
+   from the ``ptxas`` report, the staged kernels' tile, lanes and dynamic
+   shared memory at the bench geometry (fs2 and the per-tick motion kernel,
+   both modes), and the fused ICP kernel's layout at 180 x 180 points;
+2. the per-tick motion kernel (a staged tile) against its plain PyTorch
+   version at the bench geometry (P=100,000 particles, L=64 landmark slots,
+   M=16 measurements), production and parity, from a state seeded by 3
+   plain ticks, and at a ragged P=1,000 with L in {16, 64, 256}, tiles of
+   mixed counts and maps filling to L within the tick, both modes: every
+   output bit for bit;
 3. the chunked motion kernel against its plain version, C=16 ticks, bit for
    bit;
 4. the motion main path: record a 300-tick synthetic log and replay it with
@@ -34,28 +37,40 @@ Phases, one line each (or more):
 8. fs2 on the card against the CPU: 3 chunks of 8 and 4 tail ticks at
    P=256, L=16 with the same draws; estimates and final state within
    atol = rtol = 1e-4;
-9. kernel and plain times per tick, with CUDA events; the fs2 kernels at
-   each launch geometry of ``FS2_GEOMETRIES`` (tile, lanes), each bit for
-   bit against the plain versions, then timed in turns; and the ICP
-   nearest-neighbour kernel's time per call on the adaptive replay's batch
-   of cloud pairs beside its plain version and ``torch.cdist`` + masked
-   ``min``;
-10. the ICP nearest-neighbour kernel against its plain version: the
-    adaptive replay's own batch (597 pairs of 180-point scans), random
-    clouds with ties and invalid targets, and one large pair through the
-    shared-memory tiling; indices and distances must agree exactly;
+9. kernel and plain times per tick, with CUDA events, and device times
+   under ``torch.profiler``; the per-tick motion kernel at each launch
+   geometry of ``MOTION_GEOMETRIES`` and the fs2 kernels at each of
+   ``FS2_GEOMETRIES`` (tile, lanes), each bit for bit against the plain
+   versions, then timed in turns; the ICP nearest-neighbour kernel's time
+   per call on the adaptive replay's batch of cloud pairs beside its plain
+   version and ``torch.cdist`` + masked ``min``; the fused point-to-line
+   kernel per call on that batch (597 pairs) and on an online batch (2
+   pairs), beside its plain version and the old per-iteration path (one
+   search launch and ~45 eager ops per iteration), and at each geometry of
+   ``ICP_GEOMETRIES`` (threads per pair, lanes per point), bit for bit;
+10. the ICP kernels against their plain versions: the rotation's sinf/cosf
+    against ``torch.sin``/``torch.cos`` on 10^8 values in [-4 pi, 4 pi] and
+    the edges; the nearest-neighbour search on the adaptive replay's own
+    batch (597 pairs of 180-point scans), random clouds with ties and
+    invalid targets, one large pair through the shared-memory tiling and
+    70,000 pairs; the fused point-to-line kernel on the replay batch,
+    2-pair online batches, random clouds with ties and invalid targets, an
+    all-invalid target, pairs that run to ``max_iter``, and a 4096 x 8192
+    pair (targets in tiles, per-point arrays in scratch); all outputs equal;
 11. the fs2 + ICP + adaptive-floors main path: ``replay_chunked`` at
     P=100,000, L=64, chunk 8 on the 300-tick drive, clean and with wheel
     slip (0.02, 0.02); the counters must show 37 chunked and 4 per-tick fs2
-    launches, no motion launch and ICP launches; ATE under 0.05 m clean and
-    0.10 m with slip; a second clean run must repeat bit for bit; and at
-    P=256, L=16 the ICP stage (blended odometry, floors, dial) and a
-    noise-free motion + ICP replay must agree with the CPU path;
+    launches, one fused ICP launch (the ICP stage), no search launch and no
+    motion launch; ATE under 0.05 m clean and 0.10 m with slip; a second
+    clean run must repeat bit for bit; and at P=256, L=16 the ICP stage
+    (blended odometry, floors, dial) and a noise-free motion + ICP replay
+    must agree with the CPU path;
 12. the online main path: ``run_driver(ReplayDriver(log))`` at P=100,000,
     L=64, fs2 + ICP + adaptive floors, 300 ticks; 300 per-tick fs2 launches,
-    no chunked one, ICP launches, ATE under 0.05 m, a second run bit for
-    bit, and the wall time per tick with its host-clock split (ICP
-    refinement, frontend + step) as ``run_driver`` records it;
+    no chunked one, one fused ICP launch per tick with a previous scan (299)
+    and no search launch, ATE under 0.05 m, a second run bit for bit, and
+    the wall time per tick with its host-clock split (ICP refinement,
+    frontend + step) as ``run_driver`` records it;
 13. the ring halo exchange kernel against its plain version: S in {1, 2, 4,
     8} shards of P=100,000 particles at L=64 (blocks of 389 floats per
     particle) and a ragged case (12,501 particles per shard at S=8); equal
@@ -127,6 +142,10 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                                "fastslam_tpu/core/pallas_kernels.py:1735"),
     "icp_correspondences": ("fastslam_tpu_torch/csrc/icp_nn.cu",
                             "fastslam_tpu/core/pallas_kernels.py:1901"),
+    # the search of pallas_kernels.py:1901 with the while-loop of
+    # fastslam_tpu/proposal/icp.py:178 around it
+    "icp_point_to_line": ("fastslam_tpu_torch/csrc/icp_nn.cu",
+                          "fastslam_tpu/core/pallas_kernels.py:1901"),
     "ring_halo_exchange": ("fastslam_tpu_torch/csrc/ring_halo.cu",
                            "fastslam_tpu/parallel/ring_resample.py:106"),
     "hbm_copy": ("fastslam_tpu_torch/csrc/probes.cu", "scripts/bench_hbm_floor.py:47"),
@@ -136,12 +155,23 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
 MOTION = ("fused_update_planes", "fused_update_planes_multi")
 FS2 = ("fused_fs2_planes", "fused_fs2_planes_multi")
 ICP = "icp_correspondences"
+FUSED_ICP = "icp_point_to_line"
 RING = "ring_halo_exchange"
 PROBES = ("hbm_copy", "mul_add", "fma_chain")
 PROBE_TILE, PROBE_PASSES = 256, 256
 # the fs2 kernels' launch geometries timed in phase 9: (particles per tile,
 # lanes per particle)
 FS2_GEOMETRIES = ((128, 1), (64, 1), (64, 2), (64, 4), (32, 2), (32, 4), (32, 8))
+# the per-tick motion kernel's launch geometries timed in phase 9
+MOTION_GEOMETRIES = ((16, 8), (32, 2), (32, 4), (32, 8), (64, 2), (64, 4), (16, 16))
+# the fused ICP kernel's: (threads per cloud pair, lanes per source point)
+ICP_GEOMETRIES = ((128, 4), (256, 4), (256, 8), (512, 8), (512, 16), (1024, 16), (1024, 32))
+ONLINE_TICK = 150    # the online batch of phases 9-10: this tick's two matches
+# the launches of the ICP main paths: the replay's ICP stage is one fused
+# call; the online loop makes one per tick with a previous scan
+ADAPTIVE_LAUNCHES = {"fused_fs2_planes_multi": 37, "fused_fs2_planes": 4, "icp_point_to_line": 1}
+ONLINE_LAUNCHES = {"fused_fs2_planes": 300, "icp_point_to_line": 299}
+SIN_COS_VALUES = 100_000_000
 FMA_RTOL = 1e-6      # fma_chain vs its plain version: rare double roundings
 # shared memory streams 32 banks x 4 bytes per clock on each SM
 SMEM_BYTES_PER_CLOCK_PER_SM = 128
@@ -162,6 +192,9 @@ PROPOSAL_OPS = 100
 SAMPLE_OPS = 80
 # per (source point, valid target) of the ICP search: 2 sub, 2 mul, add, compare
 NN_OPS = 6
+# per source point and iteration of the fused ICP outside the search: sqrt,
+# r and J (9), w and its products (13), the tree's 11 adds, the move (8)
+ICP_POINT_OPS = 42
 PLANES = ("lm_mx", "lm_my", "lm_ca", "lm_cb", "lm_cd")   # production's five
 
 
@@ -197,7 +230,8 @@ def ptxas_summary(report: str):
         if entry:
             m = re.search(r"(fused_(?:update|fs2)_planes(?:_multi)?_kernel)I((?:Lb[01]E)+)",
                           entry.group(1))
-            plain = next((k for k in ("icp_nn_kernel", "ring_halo_kernel",
+            plain = next((k for k in ("icp_nn_kernel", "icp_point_to_line_kernel",
+                                      "icp_sin_cos_kernel", "ring_halo_kernel",
                                       "hbm_copy_kernel", "mul_add_kernel",
                                       "fma_chain_kernel")
                           if k in entry.group(1)), entry.group(1))
@@ -299,7 +333,70 @@ def phase2(gen, ms):
         phase(2, f"per-tick {'parity' if parity else 'production'}: every output "
                  f"(weights, planes, lm_count) equal to the plain version bit for bit, "
                  f"particles updated {updated}, appended {appends}")
+    for l in (16, 64, 256):
+        for parity in (False, True):
+            cfg, state, poses, z, zv = ragged_motion_inputs(l, parity, seed=l + parity)
+            tile = cuda_kernels.motion_launch_geometry(l, RAGGED_M, parity)[0]
+            first = state.lm_count[:tile]
+            if not int(first.min()) < int(first.max()):
+                raise AssertionError("ragged motion state: the first tile's counts are not mixed")
+            sk, sp = state.clone(), state.clone()
+            got = cuda_kernels.fused_update_planes(poses, *args_of(sk), z, zv, cfg)
+            torch.cuda.synchronize()
+            want = cuda_kernels.fused_update_planes_ref(poses, *args_of(sp), z, zv, cfg)
+            compare_exact(f"per-tick L={l} parity={parity}", got, want)
+            before, after = state.lm_count, want[-1]
+            filled = int(((before < l) & (after == l)).sum())
+            # at 256 the scattered landmarks match what would append
+            if (l < 256 and not filled) or not bool((after > before).any()):
+                raise AssertionError(f"ragged motion L={l}: no map filled to L ({filled})")
+            phase(2, f"per-tick {'parity' if parity else 'production'} L={l} P={RAGGED_P} "
+                     f"(tiles of {tile}, the last ragged, counts mixed): every output equal "
+                     f"to the plain version bit for bit, {filled} maps filled to L in the tick")
     return worst
+
+
+RAGGED_P, RAGGED_M = 1000, 16
+RAGGED_Z = [(1.0 + 0.35 * k, -2.8 + 0.37 * k) for k in range(RAGGED_M)]
+
+
+def ragged_motion_inputs(l, parity, seed):
+    """A planes state of RAGGED_P particles whose tiles mix every count from
+    0 to L (a fifth two slots short of a full map, some full), slots 0..7
+    near the first measurements' world points (matches), the rest scattered
+    (appends); asymmetric covariances in parity mode; the tick's poses."""
+    import numpy as np
+    import torch
+
+    from fastslam_tpu_torch.config import FastSLAMConfig
+    from fastslam_tpu_torch.core.state import init_planes_state
+
+    rng = np.random.default_rng(seed)
+    p = RAGGED_P
+    cfg = FastSLAMConfig(num_particles=p, max_landmarks=l, max_measurements=RAGGED_M,
+                         parity_mode=parity)
+    counts = rng.integers(0, l + 1, p)
+    counts[::5] = max(l - 2, 0)
+    counts[::13] = l
+    means = rng.uniform(-9.0, 9.0, (2, l, p))
+    for k in range(min(l, 8)):
+        r, b = RAGGED_Z[2 * k]
+        means[:, k] = np.array([r * np.cos(b), r * np.sin(b)])[:, None] \
+            + rng.normal(0.0, 0.03, (2, p))
+    a, d = rng.uniform(0.02, 0.2, (2, l, p))
+    b = rng.uniform(-0.01, 0.01, (l, p))
+    c = rng.uniform(-0.01, 0.01, (l, p)) if parity else None
+    f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(DEVICE)
+    state = init_planes_state(cfg, DEVICE).replace(
+        log_weights=f32(np.log(rng.dirichlet(np.ones(p)))),
+        lm_mx=f32(means[0]), lm_my=f32(means[1]), lm_ca=f32(a), lm_cb=f32(b),
+        lm_cc=f32(c) if parity else None, lm_cd=f32(d),
+        lm_count=torch.from_numpy(counts.astype(np.int32)).to(DEVICE))
+    poses = f32(rng.normal(0.0, 0.05, (p, 3)))
+    z = torch.tensor(RAGGED_Z, dtype=torch.float32, device=DEVICE)
+    zv = torch.ones(RAGGED_M, dtype=torch.bool, device=DEVICE)
+    zv[3] = False                                      # an interior hole
+    return cfg, state, poses, z, zv
 
 
 def phase3(gen, ms):
@@ -631,6 +728,113 @@ def icp_library(batch):
     return d.min(dim=-1)
 
 
+def fused_icp_args(batch):
+    """``(source, target, source_valid, target_valid, normals, normal_valid)``
+    of a batch of cloud pairs, the normals as ``proposal/icp.py`` gives them
+    to the fused kernel."""
+    from fastslam_tpu_torch.proposal.icp import estimate_normals
+
+    pre, tgt, sv, tv = batch
+    normals, n_ok = estimate_normals(tgt, tv)
+    return pre, tgt, sv, tv, normals.contiguous(), n_ok.contiguous()
+
+
+def online_batch(batch, tick=ONLINE_TICK):
+    """The two pairs the online loop matches at ``tick``: scan t-1 -> t and
+    scan t-2 -> t, warm-started as the replay's batch is."""
+    n1 = (batch[0].shape[0] + 1) // 2          # the T-1 single-step pairs come first
+    pick = [tick - 1, n1 + tick - 2]
+    return tuple(t[pick].contiguous() for t in batch)
+
+
+def old_point_to_line(pre, tgt, sv, tv):
+    """The point-to-line loop as the port ran it before the fused kernel:
+    per iteration one search launch and ~45 eager ops, with a host check of
+    convergence every 2 iterations (``proposal/icp.py:_iterate``)."""
+    import torch
+
+    from fastslam_tpu_torch.proposal import icp
+
+    cfg = adaptive_config()
+    normals, n_ok = icp.estimate_normals(tgt, tv)
+    sw = sv.to(pre.dtype)
+    nq = torch.cat([normals, n_ok.to(pre.dtype)[..., None]], dim=-1)
+
+    def body(src):
+        dist, idx = icp.nearest_neighbors(src, tgt, tv)
+        q = icp._gather_points(tgt, idx)
+        ng = icp._gather_points(nq, idx)
+        n = ng[..., :2]
+        w = sw * ng[..., 2]
+        r = (src[..., 0] - q[..., 0]) * n[..., 0] + (src[..., 1] - q[..., 1]) * n[..., 1]
+        j0 = src[..., 0] * n[..., 1] - src[..., 1] * n[..., 0]
+        j1, j2 = n[..., 0], n[..., 1]
+        h00 = torch.sum(w * j0 * j0, dim=-1) + 1e-9
+        h01 = torch.sum(w * j0 * j1, dim=-1)
+        h02 = torch.sum(w * j0 * j2, dim=-1)
+        h11 = torch.sum(w * j1 * j1, dim=-1) + 1e-9
+        h12 = torch.sum(w * j1 * j2, dim=-1)
+        h22 = torch.sum(w * j2 * j2, dim=-1) + 1e-9
+        b0 = -torch.sum(w * j0 * r, dim=-1)
+        b1 = -torch.sum(w * j1 * r, dim=-1)
+        b2 = -torch.sum(w * j2 * r, dim=-1)
+        c00 = h11 * h22 - h12 * h12
+        c01 = h02 * h12 - h01 * h22
+        c02 = h01 * h12 - h02 * h11
+        det = h00 * c00 + h01 * c01 + h02 * c02
+        det = torch.where(torch.abs(det) > 1e-12, det, 1e-12)
+        c11 = h00 * h22 - h02 * h02
+        c12 = h01 * h02 - h00 * h12
+        c22 = h00 * h11 - h01 * h01
+        theta = (c00 * b0 + c01 * b1 + c02 * b2) / det
+        tx = (c01 * b0 + c11 * b1 + c12 * b2) / det
+        ty = (c02 * b0 + c12 * b1 + c22 * b2) / det
+        err = torch.sum(dist * w, dim=-1) / torch.clamp_min(torch.sum(w, dim=-1), 1e-12)
+        return theta, torch.stack([tx, ty], dim=-1), err
+
+    return icp._iterate(body, pre, cfg.icp_max_iterations, cfg.icp_tolerance)
+
+
+def fused_icp_bound(args, iters):
+    """Bound per call of the fused point-to-line ICP on ``args``
+    (:func:`fused_icp_args`) with the iterations ``iters`` each pair ran:
+    points, normals and flags read once, four outputs written; per iteration
+    NN_OPS per source point and valid target and ICP_POINT_OPS per source
+    point."""
+    pre, tgt, _, tv = args[:4]
+    b, n, mt = pre.shape[0], pre.shape[1], tgt.shape[1]
+    nbytes = b * (n * 8 + n + mt * 8 + mt + mt * 8 + mt + 16)
+    valid = tv.sum(dim=1).to(iters.dtype)
+    ops = int((iters.long() * n * (NN_OPS * valid.long() + ICP_POINT_OPS)).sum())
+    return bound_ms(nbytes, ops)
+
+
+def at_icp_geometry(geometry, run):
+    """``run()`` with the fused ICP kernel launched at ``geometry`` (threads
+    per pair, lanes per point) in place of the wrapper's own."""
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    saved = cuda_kernels.ICP_THREADS, cuda_kernels.ICP_LANES
+    cuda_kernels.ICP_THREADS, cuda_kernels.ICP_LANES = geometry
+    try:
+        return run()
+    finally:
+        cuda_kernels.ICP_THREADS, cuda_kernels.ICP_LANES = saved
+
+
+def same_outputs(tag, got, want):
+    """Every output equal, NaN where the other has NaN (an all-invalid
+    target's mean error)."""
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        nan = torch.isnan(w) if w.is_floating_point() else torch.zeros_like(w, dtype=torch.bool)
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(
+                torch.isnan(g) if g.is_floating_point() else nan, nan) \
+                or not torch.equal(g[~nan], w[~nan]):
+            raise AssertionError(f"{tag}: output {i} differs from the plain version")
+
+
 def profiled_device_us(fn, kernel, reps=20):
     """Mean device time of ``kernel`` per call of ``fn`` under
     ``torch.profiler`` (CUPTI), or None when it records no such event."""
@@ -717,6 +921,12 @@ def phase9(gen, ms, batch):
                  + (f"{us:.2f} us ({us / ticks / 1e3:.4f} ms/tick)" if us is not None
                     else "no device event seen"))
     fs2_geometry_sweep(sk, fs2_tick, fs2_chunk)
+    us = profiled_device_us(lambda: cuda_kernels.fused_update_planes(
+        state.poses, *args_of(sk), ms.range_bearing, ms.valid, cfg),
+        "fused_update_planes_kernel", reps=5)
+    phase(9, "fused_update_planes: device time per launch under torch.profiler: "
+             + (f"{us:.2f} us" if us is not None else "no device event seen"))
+    motion_geometry_sweep(sk, tick)
     device_us = profiled_device_us(lambda: cuda_kernels.icp_correspondences(pre, tgt, tv),
                                    "icp_nn_kernel")
     phase(9, f"{ICP}: device time per launch under torch.profiler: "
@@ -728,7 +938,66 @@ def phase9(gen, ms, batch):
              f"{t['library_nn']:.4f} ms/call, bound {bounds[ICP][0]:.6f} ms "
              f"({bounds[ICP][1]}) ({pre.shape[0]} pairs, {pre.shape[1]} x "
              f"{tgt.shape[1]} points)")
+    times[FUSED_ICP], bounds[FUSED_ICP] = fused_icp_times(batch)
     return times, bounds
+
+
+def fused_icp_times(batch):
+    """The fused point-to-line kernel per call at the replay and online
+    batches, beside its plain version, the old per-iteration path and the
+    whole proposal call; then each geometry of ICP_GEOMETRIES, bit for bit
+    and timed in turns.  Returns the replay batch's (kernel, plain, None)
+    times and bound."""
+    from fastslam_tpu_torch.core import cuda_kernels
+    from fastslam_tpu_torch.proposal import icp
+
+    cfg = adaptive_config()
+    tol, max_iter = cfg.icp_tolerance, cfg.icp_max_iterations
+    runs = {"replay": fused_icp_args(batch), "online": fused_icp_args(online_batch(batch))}
+    out = {}
+    for name, args in runs.items():
+        fused = lambda: cuda_kernels.icp_point_to_line_fused(*args, max_iter, tol)
+        t = {}
+        for key, fn, reps in (
+                ("plain", lambda: cuda_kernels.icp_point_to_line_ref(*args, max_iter, tol), 3),
+                ("old", lambda: old_point_to_line(*args[:4]), 10),
+                ("kernel", fused, 50),
+                ("proposal", lambda: icp.icp_point_to_line(*args[:4], cfg), 50),
+                ("kernel_again", fused, 50),
+                ("old_again", lambda: old_point_to_line(*args[:4]), 10)):
+            t[key] = time_ms(fn, reps)
+        iters = fused()[3]
+        bound = fused_icp_bound(args, iters)
+        us = profiled_device_us(fused, "icp_point_to_line_kernel")
+        out[name] = (t, bound)
+        phase(9, f"{FUSED_ICP} {name} batch ({args[0].shape[0]} pairs, {args[0].shape[1]} x "
+                 f"{args[1].shape[1]} points, {int(iters.sum())} iterations, at most "
+                 f"{int(iters.max())}): kernel {t['kernel']:.4f} ms/call (again "
+                 f"{t['kernel_again']:.4f}; device "
+                 + (f"{us:.2f} us" if us is not None else "not seen")
+                 + f"), the whole proposal call (normals included) {t['proposal']:.4f} ms, "
+                 f"old per-iteration path {t['old']:.4f} ms (again {t['old_again']:.4f}), "
+                 f"plain {t['plain']:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+    chosen = (cuda_kernels.ICP_THREADS, cuda_kernels.ICP_LANES)
+    for name, args in runs.items():
+        want = cuda_kernels.icp_point_to_line_ref(*args, max_iter, tol)
+        for g in ICP_GEOMETRIES:
+            same_outputs(f"fused ICP {name} at {g}", at_icp_geometry(
+                g, lambda: cuda_kernels.icp_point_to_line_fused(*args, max_iter, tol)), want)
+    ms = {}
+    for g in ICP_GEOMETRIES + ICP_GEOMETRIES[::-1]:
+        for name, args in runs.items():
+            ms.setdefault((g, name), []).append(at_icp_geometry(g, lambda: time_ms(
+                lambda: cuda_kernels.icp_point_to_line_fused(*args, max_iter, tol), 30)))
+    for g in ICP_GEOMETRIES:
+        phase(9, f"fused ICP geometry {g[0]} threads x {g[1]} lanes"
+                 f"{' (ICP_THREADS, ICP_LANES)' if g == chosen else ''}: equal to the plain "
+                 f"version bit for bit; "
+                 + ", ".join(f"{name} {min(ms[g, name]):.4f} ms/call (runs "
+                             f"{' / '.join(f'{x:.4f}' for x in ms[g, name])})"
+                             for name in runs))
+    t, bound = out["replay"]
+    return (t["kernel"], t["plain"], None), bound
 
 
 def at_geometry(geometry, run):
@@ -772,6 +1041,52 @@ def fs2_geometry_sweep(state, fs2_tick, fs2_chunk):
                  + ", ".join(f"{name} {min(ms[g, name]):.4f} ms/tick (runs "
                              f"{' / '.join(f'{x:.4f}' for x in ms[g, name])})"
                              for name in runs))
+
+
+def at_motion_geometry(geometry, run):
+    """``run()`` with the per-tick motion kernel launched at ``geometry``
+    (tile, lanes) in place of the wrapper's own."""
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    saved = cuda_kernels.MOTION_TILE, cuda_kernels.MOTION_LANES
+    cuda_kernels.MOTION_TILE, cuda_kernels.MOTION_LANES = geometry
+    try:
+        return run()
+    finally:
+        cuda_kernels.MOTION_TILE, cuda_kernels.MOTION_LANES = saved
+
+
+def motion_geometry_sweep(state, tick):
+    """The per-tick motion kernel at each launch geometry of
+    MOTION_GEOMETRIES: every output bit for bit against the plain version
+    at the bench state (production) and on the ragged L=64 state of phase 2
+    (both modes), then ms per tick (production), in turns over the
+    geometries forward and backward."""
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    chosen = cuda_kernels.motion_launch_geometry(L, M, False)
+    kernel, plain = tick(cuda_kernels.fused_update_planes), \
+        tick(cuda_kernels.fused_update_planes_ref)
+    want = plain(state.clone())
+    ragged = [ragged_motion_inputs(64, parity, seed=90 + parity) for parity in (False, True)]
+    ragged_want = [cuda_kernels.fused_update_planes_ref(poses, *args_of(s.clone()), z, zv, c)
+                   for c, s, poses, z, zv in ragged]
+    for g in MOTION_GEOMETRIES:
+        compare_exact(f"motion per-tick at {g}",
+                      at_motion_geometry(g, lambda: kernel(state.clone())), want)
+        for (c, s, poses, z, zv), w in zip(ragged, ragged_want):
+            compare_exact(f"motion per-tick at {g}, parity {c.parity_mode}", at_motion_geometry(
+                g, lambda: cuda_kernels.fused_update_planes(poses, *args_of(s.clone()), z, zv,
+                                                            c)), w)
+    ms = {}
+    for g in MOTION_GEOMETRIES + MOTION_GEOMETRIES[::-1]:
+        ms.setdefault(g, []).append(at_motion_geometry(g, lambda: time_ms(
+            lambda: kernel(state), 20)))
+    for g in MOTION_GEOMETRIES:
+        phase(9, f"motion per-tick launch geometry {g[0]} particles x {g[1]} lanes"
+                 f"{' (MOTION_TILE, MOTION_LANES)' if g == chosen else ''}: equal to the "
+                 f"plain version bit for bit; {min(ms[g]):.4f} ms/tick (runs "
+                 f"{' / '.join(f'{x:.4f}' for x in ms[g])})")
 
 
 def adaptive_config(**kw):
@@ -834,6 +1149,82 @@ def phase10(batch):
                   f"mismatches 0, max abs err {err:.3e}, no valid target in "
                   f"{int((~v.any(dim=-1)).sum()) if v.dim() == 2 else int(not v.any())} "
                   f"cloud(s)")
+    return worst, phase10_fused(batch, (src, tgt, tv), gen)
+
+
+def phase10_sin_cos(gen):
+    """The fused kernel's rotation (sinf, cosf built with -fmad=false)
+    against torch.sin / torch.cos of the same CUDA tensor, bit for bit."""
+    import math
+
+    import torch
+
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    x = (torch.rand(SIN_COS_VALUES, generator=gen, device=DEVICE) * 2.0 - 1.0) * (4 * math.pi)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    edges = [0.0, -0.0, math.pi, math.pi / 2, 2 * math.pi, 4 * math.pi, 1e-38, 1e-45, 1e-30,
+             1e-4, 0.5, 1e4, 1e30, 3.4e38, math.inf, math.nan]
+    edges = torch.stack([f32(v) for v in edges])
+    edges = torch.cat([edges, -edges, torch.nextafter(edges, f32(0.0)),
+                       torch.nextafter(edges, f32(math.inf))]).to(DEVICE)
+    x = torch.cat([x, edges])
+    got = cuda_kernels.icp_rotation_sin_cos(x)
+    torch.cuda.synchronize()
+    want = (torch.sin(x), torch.cos(x))
+    off = [int(((g != w) & ~(torch.isnan(g) & torch.isnan(w))).sum())
+           for g, w in zip(got, want)]
+    if any(off):
+        raise AssertionError(f"sinf/cosf differ from torch.sin/torch.cos on {off[0]} / {off[1]} "
+                             f"of {x.numel()} values")
+    phase(10, f"the fused ICP's sinf/cosf (-fmad=false) equal torch.sin/torch.cos on the card "
+              f"bit for bit on {SIN_COS_VALUES} uniform values in [-4 pi, 4 pi] and "
+              f"{edges.numel()} edges (0, denormals, pi multiples, 1e30, inf, NaN, neighbours)")
+
+
+def phase10_fused(batch, random_clouds, gen):
+    """The fused point-to-line kernel against its plain version on the card:
+    theta, translation, mean error and iterations equal."""
+    import torch
+
+    from fastslam_tpu_torch.core import cuda_kernels
+    from fastslam_tpu_torch.proposal.icp import rotate_points
+
+    cfg = adaptive_config()
+    tol, max_iter = cfg.icp_tolerance, cfg.icp_max_iterations
+    src, tgt, tv = random_clouds
+    sv = torch.rand(src.shape[:2], generator=gen, device=DEVICE) < 0.9
+    invalid = tuple(t.clone() for t in online_batch(batch))
+    invalid[3][0] = False                                 # an all-invalid target
+    big_t = torch.randn((1, 8192, 2), generator=gen, device=DEVICE) * 5.0
+    big_s = rotate_points(big_t[:, :4096], 0.02) + torch.tensor([0.05, -0.03], device=DEVICE) \
+        + 0.01 * torch.randn((1, 4096, 2), generator=gen, device=DEVICE)
+    big = (big_s.contiguous(), big_t, torch.ones((1, 4096), dtype=torch.bool, device=DEVICE),
+           torch.rand((1, 8192), generator=gen, device=DEVICE) < 0.9)
+    cases = [("replay batch", batch, tol)]
+    cases += [(f"online batch, tick {t}", online_batch(batch, t), tol) for t in (2, 50, 299)]
+    cases += [("random ties/invalid", (src, tgt, sv, tv), tol),
+              ("all-invalid target", invalid, tol),
+              ("8 replay pairs to max_iter (tol 0)", tuple(t[:8] for t in batch), 0.0),
+              ("large pair 4096 x 8192", big, tol)]
+    worst = 0.0
+    for name, pairs, tl in cases:
+        args = fused_icp_args(pairs)
+        got = cuda_kernels.icp_point_to_line_fused(*args, max_iter, tl)
+        torch.cuda.synchronize()
+        want = cuda_kernels.icp_point_to_line_ref(*args, max_iter, tl)
+        same_outputs(f"fused ICP {name}", got, want)
+        iters = want[3]
+        if tl == 0.0 and not bool((iters == max_iter).all()):
+            raise AssertionError(f"fused ICP {name}: iterations {iters.tolist()}")
+        p2, smem, in_scratch = cuda_kernels.icp_fused_layout(args[0].shape[1], args[1].shape[1])
+        phase(10, f"fused ICP {name} ({args[0].shape[0]} pairs, {args[0].shape[1]} x "
+                  f"{args[1].shape[1]} points; {smem} B shared"
+                  f"{', per-point arrays in scratch' if in_scratch else ''}"
+                  f"{', targets in tiles' if args[1].shape[1] > cuda_kernels.ICP_TGT_TILE else ''}"
+                  f"): theta, translation, mean error and iterations equal to the plain version "
+                  f"({int(iters.min())}-{int(iters.max())} iterations, "
+                  f"{int(torch.isnan(want[2]).sum())} NaN mean errors)")
     return worst
 
 
@@ -853,11 +1244,11 @@ def zeroed_run(run):
 
 
 def check_icp_launches(tag, launches, expected):
-    """``expected`` launches of the filter kernels (0 for the others) and at
-    least one launch of the ICP kernel, whose count depends on the data."""
-    want = {k: expected.get(k, 0) for k in launches if k != ICP}
-    if {k: launches[k] for k in want} != want or not launches[ICP] > 0:
-        raise AssertionError(f"{tag} launches {launches}, expected {want} and ICP > 0")
+    """Exactly ``expected`` launches (0 for the kernels it does not name):
+    one fused ICP launch per ICP call, and no launch of the search alone."""
+    want = {k: expected.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
 
 
 def check_estimates(tag, hist, ate_bar):
@@ -888,8 +1279,7 @@ def phase11(log, fs2_ate):
     replay = lambda slip=(0.0, 0.0): replay_chunked(
         log, cfg, chunk_size=ADAPTIVE_C, rng=0, device=DEVICE, odometry_noise=slip)
     hist, launches, wall = zeroed_run(replay)
-    check_icp_launches("adaptive replay", launches,
-                       {"fused_fs2_planes_multi": 37, "fused_fs2_planes": 4})
+    check_icp_launches("adaptive replay", launches, ADAPTIVE_LAUNCHES)
     est, ate = check_estimates("adaptive replay", hist, 0.05)
     fixed = replay_chunked(log, config(proposal_mode="fastslam2"), chunk_size=ADAPTIVE_C,
                            rng=0, device=DEVICE).metrics()["ate_rmse_m"]
@@ -904,9 +1294,10 @@ def phase11(log, fs2_ate):
                              f"{np.abs(again - est).max():.3e}")
     phase(11, "a second run gives the same 300 estimates bit for bit")
     slipped, slip_launches, slip_wall = zeroed_run(lambda: replay(SLIP))
+    check_icp_launches("adaptive replay with slip", slip_launches, ADAPTIVE_LAUNCHES)
     _, slip_ate = check_estimates("adaptive replay with slip", slipped, 0.10)
     phase(11, f"with wheel slip {SLIP}: ATE {slip_ate:.4f} m, wall {slip_wall:.2f} s, "
-              f"ICP launches {slip_launches[ICP]}")
+              f"fused ICP launches {slip_launches[FUSED_ICP]}")
 
     # the ICP stage and a noise-free motion + ICP replay, card against CPU
     pts, valid = scan_points(log)
@@ -968,7 +1359,7 @@ def phase12(log):
     cfg = adaptive_config()
     online = lambda: run_driver(ReplayDriver(log), cfg, rng=0, device=DEVICE)
     hist, launches, wall = zeroed_run(online)
-    check_icp_launches("online loop", launches, {"fused_fs2_planes": 300})
+    check_icp_launches("online loop", launches, ONLINE_LAUNCHES)
     est, ate = check_estimates("online loop", hist, 0.05)
     per = {k: v / len(log) * 1e3 for k, v in hist.stage_seconds.items()}
     phase(12, f"run_driver(ReplayDriver) fs2+ICP+adaptive 300 ticks P={P} L={L} on "
@@ -1274,7 +1665,7 @@ def phase18(log, online_est, online_wall):
             ReplayDriver(log), adaptive_config(), rng=0, device=DEVICE,
             serialize_path=snap, serialize_every=10, metrics_path=metrics,
             checkpoint_path=ckpt, checkpoint_every=150, health=True))
-        check_icp_launches("hooked online loop", launches, {"fused_fs2_planes": 300})
+        check_icp_launches("hooked online loop", launches, ONLINE_LAUNCHES)
         est = np.asarray(hist.est_poses)
         if not np.array_equal(est, online_est):
             raise AssertionError(f"hooked online loop: estimates differ from phase 12's "
@@ -1385,11 +1776,21 @@ def main() -> int:
     phase(1, f"built {', '.join(p.name for p in _build.sources())} in {build_s:.1f} s")
     for line in regs:
         phase(1, f"ptxas: {line}")
-    from fastslam_tpu_torch.core.cuda_kernels import fs2_launch_geometry, fs2_shared_bytes
+    from fastslam_tpu_torch.core import cuda_kernels
 
-    tile, lanes = fs2_launch_geometry(L, M)
+    tile, lanes = cuda_kernels.fs2_launch_geometry(L, M)
     phase(1, f"fs2 kernels at L={L}, M={M}: tiles of {tile} particles x {lanes} lanes, "
-             f"{fs2_shared_bytes(L, M, tile)} B of dynamic shared memory per block")
+             f"{cuda_kernels.fs2_shared_bytes(L, M, tile)} B of dynamic shared memory per block")
+    for parity in (False, True):
+        tile, lanes = cuda_kernels.motion_launch_geometry(L, M, parity)
+        phase(1, f"per-tick motion kernel at L={L}, M={M}, {'parity' if parity else 'production'}: "
+                 f"tiles of {tile} particles x {lanes} lanes, "
+                 f"{cuda_kernels.motion_shared_bytes(L, M, tile, parity)} B of dynamic shared "
+                 f"memory per block")
+    p2, smem, in_scratch = cuda_kernels.icp_fused_layout(180, 180)
+    phase(1, f"fused ICP kernel at 180 x 180 points: {cuda_kernels.ICP_THREADS} threads x "
+             f"{cuda_kernels.ICP_LANES} lanes per pair, sums padded to {p2}, {smem} B of dynamic "
+             f"shared memory per block{' (per-point arrays in scratch)' if in_scratch else ''}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     ms = pad_measurements(FastSLAMConfig(max_measurements=M), MEASUREMENTS, DEVICE)
@@ -1404,7 +1805,8 @@ def main() -> int:
     phase8()
     batch = replay_icp_batch(log)
     times, bounds = phase9(gen, ms, batch)
-    errs[ICP] = phase10(batch)
+    phase10_sin_cos(gen)
+    errs[ICP], errs[FUSED_ICP] = phase10(batch)
     paths["adaptive_replay"] = phase11(log, fs2_ate)
     paths["online"], online_est, online_wall = phase12(log)
     errs[RING] = phase13(gen)

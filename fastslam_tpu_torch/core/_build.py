@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "fused_update_planes_launch": [_I] + [_P] * 14 + [_I] * 4
-    + [_F, _I, _F, _F, _F, _I, _P],
+    + [_F, _I, _F, _F, _F, _I, _I, _P],
     "fused_update_planes_multi_launch": [_I] + [_P] * 22 + [_I] * 5
     + [_F, _I, _F, _F, _F, _I, _P],
     "fused_fs2_planes_launch": [_I] + [_P] * 16 + [_I] * 4
@@ -45,6 +45,8 @@ _SIGNATURES = {
     "fused_fs2_planes_multi_launch": [_I] + [_P] * 20 + [_I] * 5
     + [_F, _I, _F, _F, _F, _I, _I, _P],
     "icp_correspondences_launch": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    "icp_point_to_line_launch": [_I] + [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
+    "icp_sin_cos_launch": [_I] + [_P] * 3 + [_I, _P],
     "ring_halo_exchange_launch": [_I] + [_P] * 3 + [_I] * 2 + [_P],
     "hbm_copy_launch": [_I] + [_P] * 2 + [_I] * 2 + [_P],
     "mul_add_launch": [_I] + [_P] * 4 + [_I] * 4 + [_P],

@@ -12,7 +12,9 @@ Counterpart of ``fastslam_tpu/core/pallas_kernels.py``:
   the landmark EKF at the sampled pose (``csrc/fused_fs2.cu``);
 * the nearest-neighbour step of ICP (:func:`icp_correspondences`,
   ``csrc/icp_nn.cu``): for each source point of a batch of cloud pairs, the
-  closest valid target point;
+  closest valid target point; and the whole point-to-line ICP loop around
+  it, every iteration of every pair in one launch
+  (:func:`icp_point_to_line_fused`, same file);
 * the ring halo exchange of the distributed resampler
   (:func:`ring_halo_exchange`, ``csrc/ring_halo.cu``): every shard's packed
   particle block to both ring neighbours, for a ring of shards on one card;
@@ -26,12 +28,15 @@ Counterpart of ``fastslam_tpu/core/pallas_kernels.py``:
 per-tick motion kernel: it transposes to planes and back, as the JAX
 package's wrapper of the same name does.
 
-The motion kernels run one thread per particle over the planes in device
-memory; the fs2 kernels stage a tile of particles' planes in shared memory
-for the tick (the chunk), with a few lanes per particle
-(:func:`fs2_launch_geometry`); the four share their per-measurement device
-code (``csrc/measurement.cuh``).  The ICP kernel runs one thread per source
-point; the exchange kernel one thread per 16 bytes.
+The fs2 kernels and the per-tick motion kernel stage a tile of particles'
+planes in shared memory for the tick (the chunk), with a few lanes per
+particle (:func:`fs2_launch_geometry`, :func:`motion_launch_geometry`;
+``csrc/tile.cuh``); the chunked motion kernel runs one thread per particle
+over the planes in device memory; the four share their per-measurement
+device code (``csrc/measurement.cuh``).  The ICP search splits each source
+point's scan over a few lanes; the fused point-to-line kernel runs one block
+per cloud pair (:func:`icp_fused_layout`); the exchange kernel one thread
+per 16 bytes.
 ``core/_build.py`` compiles and loads them.
 
 Each wrapper dispatches on the device of the tensors it is given:
@@ -63,8 +68,8 @@ from fastslam_tpu_torch.core.state import FilterState, from_planes, to_planes
 
 LAUNCHES = {"fused_update_planes": 0, "fused_update_planes_multi": 0,
             "fused_fs2_planes": 0, "fused_fs2_planes_multi": 0,
-            "icp_correspondences": 0, "ring_halo_exchange": 0,
-            "hbm_copy": 0, "mul_add": 0, "fma_chain": 0}
+            "icp_correspondences": 0, "icp_point_to_line": 0, "icp_sin_cos": 0,
+            "ring_halo_exchange": 0, "hbm_copy": 0, "mul_add": 0, "fma_chain": 0}
 
 _LOG_TWO_PI = math.log(2.0 * math.pi)
 _PI = math.pi
@@ -90,6 +95,19 @@ SMEM_OPT_IN_BYTES = 232_448
 # shared memory) and lanes per particle, chosen by timing the candidates at
 # P = 100,000, L = 64, M = 16 (chip_smoke.py phase 9, PERF.md §6)
 FS2_TILE, FS2_LANES = 32, 4
+# the per-tick motion kernel's launch geometry, timed the same way (phase 9)
+MOTION_TILE, MOTION_LANES = 32, 4
+# the fused point-to-line ICP kernel: threads per cloud pair and lanes per
+# source point, the fastest of seven at both the online (2 pairs) and the
+# replay (597 pairs) batch (phase 9, PERF.md §6); then the targets staged
+# per shared-memory tile, the eleven sums, and the bytes up to which the
+# per-point arrays (sums [11, P2], moved source [N, 2]) stay in shared
+# memory, past which they go to device-memory scratch (csrc/icp_nn.cu:
+# TGT_TILE, kSums, kPointSmemBytes)
+ICP_THREADS, ICP_LANES = 512, 8
+ICP_TGT_TILE = 1024
+ICP_SUMS = 11
+ICP_POINT_SMEM_BYTES = 65536
 # the fma_chain probe's constants: x <- fma(x, a, b), 8 per pass
 FMA_CHAIN_A = 1.0000001
 FMA_CHAIN_B = 1e-7
@@ -708,6 +726,93 @@ def icp_correspondences_ref(source, target, target_valid):
     return dist, idx[..., 0].to(torch.int32)
 
 
+def _rotate(x, y, c, s):
+    """``R(theta) (x, y)`` elementwise, as ``proposal/icp.py:rotate_points``."""
+    return c * x - s * y, s * x + c * y
+
+
+def icp_point_to_line_ref(source, target, source_valid, target_valid, normals,
+                          normal_valid, max_iter: int, tol: float):
+    """Plain PyTorch version of :func:`icp_point_to_line_fused` (same
+    contract): the batched while-loop of point-to-line ICP, each pair frozen
+    once it converges, its sums by :func:`~fastslam_tpu_torch.core.kernels.tree_sum`
+    in the kernel's order.  The host checks every iteration whether a pair is
+    still active (on the CPU that costs nothing)."""
+    from fastslam_tpu_torch.core.kernels import tree_sum
+
+    _check_icp_fused_inputs(source, target, source_valid, target_valid, normals,
+                            normal_valid, max_iter)
+    b = source.shape[0]
+    dev, dt = source.device, source.dtype
+    sw = source_valid.to(dt)
+    # the normal and its validity gathered together: [B, Mt, 3]
+    nq = torch.cat([normals, normal_valid.to(dt)[..., None]], dim=-1)
+    gather = lambda pts, idx: torch.gather(
+        pts, 1, idx.long()[..., None].expand(*idx.shape, pts.shape[-1]))
+    src = source
+    it = torch.zeros(b, dtype=torch.int32, device=dev)
+    theta_total = torch.zeros(b, dtype=dt, device=dev)
+    trans_total = torch.zeros((b, 2), dtype=dt, device=dev)
+    prev_err = torch.full((b,), torch.inf, dtype=dt, device=dev)
+    converged = torch.zeros(b, dtype=torch.bool, device=dev)
+    for _ in range(max_iter):
+        if bool(converged.all()):
+            break
+        active = ~converged
+        dist, idx = icp_correspondences_ref(src, target, target_valid)
+        q = gather(target, idx)
+        ng = gather(nq, idx)
+        nx, ny = ng[..., 0], ng[..., 1]
+        w = sw * ng[..., 2]
+        sx, sy = src[..., 0], src[..., 1]
+        r = (sx - q[..., 0]) * nx + (sy - q[..., 1]) * ny
+        j0 = sx * ny - sy * nx           # J = [cross(s, n), n_x, n_y]
+        wj0, wj1, wj2 = w * j0, w * nx, w * ny
+        sums = tree_sum(torch.stack([wj0 * j0, wj0 * nx, wj0 * ny, wj1 * nx, wj1 * ny,
+                                     wj2 * ny, wj0 * r, wj1 * r, wj2 * r, dist * w, w],
+                                    dim=1))
+        h00 = sums[:, 0] + 1e-9
+        h01 = sums[:, 1]
+        h02 = sums[:, 2]
+        h11 = sums[:, 3] + 1e-9
+        h12 = sums[:, 4]
+        h22 = sums[:, 5] + 1e-9
+        b0, b1, b2 = -sums[:, 6], -sums[:, 7], -sums[:, 8]
+        # 3x3 symmetric solve via cofactors
+        c00 = h11 * h22 - h12 * h12
+        c01 = h02 * h12 - h01 * h22
+        c02 = h01 * h12 - h02 * h11
+        det = h00 * c00 + h01 * c01 + h02 * c02
+        det = torch.where(torch.abs(det) > 1e-12, det, 1e-12)
+        c11 = h00 * h22 - h02 * h02
+        c12 = h01 * h02 - h00 * h12
+        c22 = h00 * h11 - h01 * h01
+        theta = (c00 * b0 + c01 * b1 + c02 * b2) / det
+        tx = (c01 * b0 + c11 * b1 + c12 * b2) / det
+        ty = (c02 * b0 + c12 * b1 + c22 * b2) / det
+        err = sums[:, 9] / torch.clamp_min(sums[:, 10], 1e-12)
+
+        c, s = torch.cos(theta), torch.sin(theta)
+        x, y = _rotate(sx, sy, c[:, None], s[:, None])
+        new_src = torch.stack([x + tx[:, None], y + ty[:, None]], dim=-1)
+        x, y = _rotate(trans_total[:, 0], trans_total[:, 1], c, s)
+        new_trans_total = torch.stack([x + tx, y + ty], dim=-1)
+        src = torch.where(active[:, None, None], new_src, src)
+        trans_total = torch.where(active[:, None], new_trans_total, trans_total)
+        theta_total = torch.where(active, theta_total + theta, theta_total)
+        conv = torch.abs(prev_err - err) < tol
+        prev_err = torch.where(active, err, prev_err)
+        converged = torch.where(active, conv, converged)
+        it = it + active.to(torch.int32)
+    return theta_total, trans_total, prev_err, it
+
+
+def icp_rotation_sin_cos_ref(x):
+    """Plain PyTorch version of :func:`icp_rotation_sin_cos`."""
+    _check_sin_cos(x)
+    return torch.sin(x), torch.cos(x)
+
+
 # ---------------------------------------------------------------------------
 # plain version: the ring halo exchange
 # ---------------------------------------------------------------------------
@@ -824,6 +929,38 @@ def _check_nn_inputs(source, target, target_valid):
         raise ValueError(f"target_valid must lie on {device}")
 
 
+def _check_icp_fused_inputs(source, target, source_valid, target_valid, normals,
+                            normal_valid, max_iter):
+    if source.dim() != 3 or source.shape[-1] != 2 or source.shape[1] < 1:
+        raise ValueError(f"source must be [B, N, 2] with N >= 1, got {tuple(source.shape)}")
+    b, n = source.shape[:2]
+    if target.dim() != 3 or target.shape[0] != b or target.shape[-1] != 2 \
+            or target.shape[1] < 1:
+        raise ValueError(f"target must be [{b}, Mt, 2] with Mt >= 1, got "
+                         f"{tuple(target.shape)}")
+    mt = target.shape[1]
+    device = source.device
+    for name, t, shape, dtype in (
+            ("target", target, (b, mt, 2), torch.float32),
+            ("normals", normals, (b, mt, 2), torch.float32),
+            ("source_valid", source_valid, (b, n), torch.bool),
+            ("target_valid", target_valid, (b, mt), torch.bool),
+            ("normal_valid", normal_valid, (b, mt), torch.bool)):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
+            raise ValueError(f"{name} must be {dtype} {shape} on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if source.dtype != torch.float32:
+        raise ValueError(f"source must be float32, got {source.dtype}")
+    if int(max_iter) < 0:
+        raise ValueError(f"max_iter must be >= 0, got {max_iter}")
+
+
+def _check_sin_cos(x):
+    if x.dtype != torch.float32 or x.dim() != 1 or x.numel() >= 2 ** 31:
+        raise ValueError(f"the rotation check takes a float32 vector of fewer than 2^31 "
+                         f"values, got {x.dtype} {tuple(x.shape)}")
+
+
 def _check_ring_blocks(blocks):
     if not blocks or blocks[0].dim() != 2:
         raise ValueError("a ring needs at least one [P_local, D] block")
@@ -916,7 +1053,7 @@ def _motion_table(rot_eff, trans_eff, c: int, device):
 
 
 def _threads_per_block(l: int, m: int) -> int:
-    """Threads per block of the motion kernels, such that the block's
+    """Threads per block of the chunked motion kernel, such that the block's
     det/validity plane (``L * threads`` floats) and the tick's measurement
     table fit in ``_SMEM_BYTES`` of shared memory."""
     table = 5 * m * 4 + _STATIC_SMEM_BYTES
@@ -957,6 +1094,53 @@ def fs2_launch_geometry(l: int, m: int) -> Tuple[int, int]:
                          f"32-particle fs2 tile in {SMEM_OPT_IN_BYTES} bytes of shared "
                          f"memory ({fs2_shared_bytes(l, m, 32)} needed)")
     return tile, lanes
+
+
+def motion_shared_bytes(l: int, m: int, tile: int, parity: bool) -> int:
+    """Dynamic shared memory of a per-tick motion block of ``tile``
+    particles (``csrc/tile.cuh``: ``tile_shared_bytes``): the fs2 layout's
+    six planes in production, seven in parity (det(cov) in place of 1/det,
+    and cc), then the written bits, counts and the measurement table."""
+    planes = 7 if parity else 6
+    return 4 * (planes * l * tile + (l + 31) // 32 * tile + tile + 5 * m)
+
+
+def motion_launch_geometry(l: int, m: int, parity: bool) -> Tuple[int, int]:
+    """``(tile, lanes)`` of the per-tick motion kernel at L slots and M
+    measurements: ``(MOTION_TILE, MOTION_LANES)``, the tile halved until the
+    block fits the 227 KB a block may opt into, down to one warp of threads;
+    raises when that does not fit.  The kernel takes a tile of a multiple of
+    32 or a power of two below 32 particles, with a power of two up to
+    ``min(tile, 32)`` lanes each, in whole warps (``csrc/fused_update.cu``:
+    ``checked_motion_shared_bytes``)."""
+    tile, lanes = MOTION_TILE, MOTION_LANES
+    if l < 1:
+        raise ValueError(f"the motion kernel takes at least one landmark slot, got {l}")
+    fits = lambda t: motion_shared_bytes(l, m, t, parity) + _STATIC_SMEM_BYTES \
+        <= SMEM_OPT_IN_BYTES
+    smallest = max(32 // lanes, lanes)
+    while tile > smallest and not fits(tile):
+        tile = tile // 2 if tile <= 32 else max(32, tile // 2 // 32 * 32)
+    if not fits(tile):
+        raise ValueError(f"{l} landmark slots and {m} measurements do not fit a "
+                         f"{tile}-particle motion tile in {SMEM_OPT_IN_BYTES} bytes of "
+                         f"shared memory ({motion_shared_bytes(l, m, tile, parity)} needed)")
+    return tile, lanes
+
+
+def icp_fused_layout(n: int, mt: int) -> Tuple[int, int, bool]:
+    """``(p2, smem, in_scratch)`` of the fused point-to-line kernel for N
+    source and Mt target points: the least power of two ``p2 >= N`` that the
+    sums' tree pads the point axis to, the block's dynamic shared memory (a
+    tile of up to ``ICP_TGT_TILE`` targets with normals and flags, 20 bytes
+    each, and the per-point arrays unless they go to scratch), and whether
+    the per-point arrays (``[11, p2]`` terms and the ``[N, 2]`` moved
+    source) go to a device-memory scratch row of each pair
+    (``csrc/icp_nn.cu``: ``icp_fused_shared_bytes``)."""
+    p2 = 1 << max(n - 1, 0).bit_length()
+    points = 4 * (ICP_SUMS * p2 + 2 * n)
+    in_scratch = points > ICP_POINT_SMEM_BYTES
+    return p2, 20 * min(mt, ICP_TGT_TILE) + (0 if in_scratch else points), in_scratch
 
 
 def _gate_args(config: FastSLAMConfig):
@@ -1022,6 +1206,7 @@ def fused_update_planes(poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb, lm_cc,
 
     l, p = lm_mx.shape
     m = z.shape[0]
+    tile, lanes = motion_launch_geometry(l, m, config.parity_mode)
     z4, zvalid, mlast = _measurement_table(z, z_valid)
     cyaw = torch.cos(poses[:, 2]).contiguous()
     syaw = torch.sin(poses[:, 2]).contiguous()
@@ -1033,7 +1218,7 @@ def fused_update_planes(poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb, lm_cc,
         _ptr(lm_count), _ptr(z4), _ptr(zvalid), _ptr(mlast),
         ctypes.c_int(p), ctypes.c_int(l), ctypes.c_int(m),
         ctypes.c_int(int(config.parity_mode)), *_gate_args(config),
-        ctypes.c_int(_threads_per_block(l, m)),
+        ctypes.c_int(tile), ctypes.c_int(lanes),
     )
     LAUNCHES["fused_update_planes"] += 1
     return (log_weights, lm_mx, lm_my, lm_ca, lm_cb,
@@ -1380,3 +1565,70 @@ def fma_chain(x, passes: int = 256):
             ctypes.c_int(x.numel()), ctypes.c_int(passes))
     LAUNCHES["fma_chain"] += 1
     return out
+
+
+def icp_point_to_line_fused(source, target, source_valid, target_valid, normals,
+                            normal_valid, max_iter: int, tol: float):
+    """Point-to-line ICP for a batch of cloud pairs, every iteration of every
+    pair in one launch: the while-loop of ``proposal/icp.py``, each pair
+    stopping at ``|prev_err - err| < tol`` or after ``max_iter`` iterations,
+    decided on the device.
+
+    Args:
+      source ``[B, N, 2]``, target ``[B, Mt, 2]`` float32; source_valid
+      ``[B, N]``, target_valid ``[B, Mt]`` bool; normals ``[B, Mt, 2]``
+      float32 and normal_valid ``[B, Mt]`` bool, the target's normals
+      (``proposal/icp.py:estimate_normals``); N, Mt >= 1.
+
+    Returns ``(theta [B], translation [B, 2], mean_error [B], num_iters [B]
+    int32)``: the accumulated rotation angle and translation, the last
+    iteration's mean NN distance (inf after no iteration), the iterations
+    each pair ran.
+    """
+    if source.device.type == "cpu":
+        return icp_point_to_line_ref(source, target, source_valid, target_valid, normals,
+                                     normal_valid, max_iter, tol)
+    _check_icp_fused_inputs(source, target, source_valid, target_valid, normals,
+                            normal_valid, max_iter)
+    device = _require_cuda(source, target, source_valid, target_valid, normals,
+                           normal_valid)
+    b, n = source.shape[:2]
+    mt = target.shape[1]
+    if b >= 2 ** 31:
+        raise ValueError(f"one launch takes fewer than 2^31 cloud pairs, got {b}")
+    from fastslam_tpu_torch.core import _build
+
+    p2, _, in_scratch = icp_fused_layout(n, mt)
+    scratch = (torch.empty((b, ICP_SUMS * p2 + 2 * n), dtype=torch.float32, device=device)
+               if in_scratch else None)
+    theta = torch.empty(b, dtype=torch.float32, device=device)
+    trans = torch.empty((b, 2), dtype=torch.float32, device=device)
+    err = torch.empty(b, dtype=torch.float32, device=device)
+    iters = torch.empty(b, dtype=torch.int32, device=device)
+    _launch(
+        _build.load().icp_point_to_line_launch, device,
+        _ptr(source), _ptr(target), _ptr(source_valid), _ptr(target_valid), _ptr(normals),
+        _ptr(normal_valid), _ptr(scratch), _ptr(theta), _ptr(trans), _ptr(err),
+        _ptr(iters), ctypes.c_int(b), ctypes.c_int(n), ctypes.c_int(mt), ctypes.c_int(p2),
+        ctypes.c_int(int(max_iter)), ctypes.c_float(tol), ctypes.c_int(ICP_THREADS),
+        ctypes.c_int(ICP_LANES),
+    )
+    LAUNCHES["icp_point_to_line"] += 1
+    return theta, trans, err, iters
+
+
+def icp_rotation_sin_cos(x):
+    """``(sin x, cos x)`` of a float32 vector as the fused ICP kernel rotates
+    by them (``csrc/icp_nn.cu``: ``rotation_sin_cos``), in one launch: the
+    check that they equal ``torch.sin``/``torch.cos`` on the card."""
+    if x.device.type == "cpu":
+        return icp_rotation_sin_cos_ref(x)
+    _check_sin_cos(x)
+    device = _require_cuda(x)
+    from fastslam_tpu_torch.core import _build
+
+    s, c = torch.empty_like(x), torch.empty_like(x)
+    _launch(_build.load().icp_sin_cos_launch, device, _ptr(x), _ptr(s), _ptr(c),
+            ctypes.c_int(x.numel()))
+    LAUNCHES["icp_sin_cos"] += 1
+    return s, c

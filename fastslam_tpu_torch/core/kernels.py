@@ -152,6 +152,21 @@ def fixed_order_cumsum(weights: torch.Tensor) -> torch.Tensor:
     return (torch.cumsum(q, dim=0).to(torch.float64) / scale).to(weights.dtype)
 
 
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed order, on any device: zeros pad
+    the axis to a power of two, then ``x[i] += x[i + h]`` for h = half, ...,
+    1.  The fused ICP kernel (``csrc/icp_nn.cu``: ``tree_sums``) adds in
+    this order, so its sums equal these bit for bit; ``torch.sum`` adds in
+    an order of its own on each device."""
+    n = x.shape[-1]
+    p2 = 1 << max(n - 1, 0).bit_length()
+    x = torch.nn.functional.pad(x, (0, p2 - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def grid_staircase_indices(cum: torch.Tensor, u0: torch.Tensor,
                            n: int) -> torch.Tensor:
     """``clip(searchsorted(cum, u0 + arange(n)/n, 'left'), 0, n-1)`` without

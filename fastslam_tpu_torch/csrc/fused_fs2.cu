@@ -30,7 +30,8 @@
 // the rows.  The chunked kernel keeps the tile resident across its C ticks:
 // the planes go back once per chunk, the trajectory rows every tick.  The
 // TPU kernels held the [L, tile] planes in VMEM for the tick and the chunk
-// the same way.
+// the same way.  The tile machinery (TileColumn, stage_tile, write_back) is
+// shared with the per-tick motion kernel in tile.cuh.
 //
 // The G lanes of a particle split its association scan: lane g takes slots
 // g, g + G, ..., and the lanes take the smallest packed key with
@@ -64,201 +65,9 @@
 // Arithmetic follows the plain PyTorch versions (core/cuda_kernels.py) op
 // for op; build with -fmad=false.
 
-#include "measurement.cuh"
+#include "tile.cuh"
 
 namespace {
-
-constexpr int kPlanes = 6;                  // mx, my, ca, cb, cd, 1/det(cov)
-constexpr int kSmemOptInLimit = 232448;     // 227 KB a block may opt into
-constexpr int kStaticSmemBytes = 64;        // the kernels' __shared__ scalars
-
-// One particle's column of the block's tile (a view for apply_measurement,
-// see measurement.cuh: DeviceColumn).  Slot l of plane k sits at
-// t[k * LT + at(l)]; the scan is split over the particle's G lanes.
-struct TileColumn {
-  float* t;            // [kPlanes][L][T]
-  unsigned* written;   // [ceil(L / 32)][T]: bit l of column i set once slot l is stored
-  int LT, T, i, g, G, swz_mask, swz_shift;
-  unsigned lanes;      // the particle's lanes within its warp
-
-  __device__ __forceinline__ int at(const int l) const {
-    return l * T + (i ^ ((l & swz_mask) << swz_shift));
-  }
-
-  __device__ __forceinline__ int argmin(const float wx, const float wy, const int cnt) const {
-    // slots at and above the count are never usable (-1 det at staging, and
-    // an append fills slot cnt first), so the scan stops there.  Lane g's
-    // slots g, g + G, ... share one swizzle: their offsets step by G rows.
-    int kmin = kInvalidKey;
-    int o = at(g);
-#pragma unroll 4
-    for (int l = g; l < cnt; l += G, o += G * T) {
-      const float inv = t[5 * LT + o];
-      const float cb = t[3 * LT + o];
-      const int key = slot_key(t[o], t[LT + o], t[2 * LT + o], cb, cb, t[4 * LT + o], inv,
-                               wx, wy, l);
-      kmin = min(kmin, inv >= 0.0f ? key : kInvalidKey);
-    }
-    for (int off = 1; off < G; off <<= 1) {
-      kmin = min(kmin, __shfl_xor_sync(lanes, kmin, off));
-    }
-    return kmin;
-  }
-
-  template <bool PARITY>
-  __device__ __forceinline__ void load(const int l, float& mu_x, float& mu_y, float& a,
-                                       float& b, float& c, float& d) const {
-    static_assert(!PARITY, "the fs2 kernels run in production mode");
-    const int o = at(l);
-    mu_x = t[o];
-    mu_y = t[LT + o];
-    a = t[2 * LT + o];
-    b = t[3 * LT + o];
-    c = b;
-    d = t[4 * LT + o];
-  }
-
-  template <bool PARITY>
-  __device__ __forceinline__ void store(const int l, const float new_mx, const float new_my,
-                                        const float a, const float b, const float,
-                                        const float d, const float det) {
-    __syncwarp(lanes);   // every lane has read the slot
-    if (g != 0) return;
-    const int o = at(l);
-    t[o] = new_mx;
-    t[LT + o] = new_my;
-    t[2 * LT + o] = a;
-    t[3 * LT + o] = b;
-    t[4 * LT + o] = d;
-    t[5 * LT + o] = det > 0.0f ? 1.0f / det : -1.0f;
-    written[(l >> 5) * T + i] |= 1u << (l & 31);
-  }
-
-  __device__ __forceinline__ void sync() const { __syncwarp(lanes); }
-};
-
-// The block's dynamic shared memory: the tile [kPlanes][L][T] | written bits
-// [ceil(L / 32)][T] | counts [T] | z table [M][4] | valid [M]
-struct TileBlock {
-  float* t;
-  unsigned* written;
-  int* cnt;
-  float* z;
-  int* zv;
-};
-
-inline size_t tile_shared_bytes(const int L, const int M, const int T) {
-  return (static_cast<size_t>(kPlanes) * L * T + static_cast<size_t>((L + 31) / 32) * T + T
-          + 5 * static_cast<size_t>(M)) * sizeof(float);
-}
-
-__device__ __forceinline__ TileBlock carve(float* smem, const int L, const int M,
-                                           const int T) {
-  TileBlock b;
-  b.t = smem;
-  b.written = reinterpret_cast<unsigned*>(smem + static_cast<size_t>(kPlanes) * L * T);
-  b.cnt = reinterpret_cast<int*>(b.written + ((L + 31) / 32) * T);
-  b.z = reinterpret_cast<float*>(b.cnt + T);
-  b.zv = reinterpret_cast<int*>(b.z + 4 * M);
-  return b;
-}
-
-// The particle tile and lane layout of one thread.
-struct Lanes {
-  int T, G, i, g, swz_mask, swz_shift;
-  unsigned lanes;
-};
-
-__device__ __forceinline__ Lanes lanes_of(const int G) {
-  Lanes w;
-  w.G = G;
-  w.T = blockDim.x / G;
-  w.i = threadIdx.x / G;
-  w.g = threadIdx.x & (G - 1);
-  w.swz_mask = G - 1;
-  w.swz_shift = 6 - __ffs(G);   // log2(32 / G)
-  const int lane = threadIdx.x & 31;
-  w.lanes = (G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u)) << (lane & ~(G - 1));
-  return w;
-}
-
-__device__ __forceinline__ TileColumn column(const TileBlock& b, const Lanes& w, const int L) {
-  return TileColumn{b.t, b.written, L * w.T, w.T, w.i, w.g, w.G, w.swz_mask, w.swz_shift,
-                    w.lanes};
-}
-
-// Stage the tile of particles p0 .. p0 + T - 1; every thread of the block
-// takes part.  Counts (0 past P) go to b.cnt and their largest to `rows`;
-// then the planes of the slots below it, and 1/det(cov) of an occupied slot
-// with a positive det, else -1 (det as the plain version's _initial_detp).
-// Clears the written bits.  Ends with a barrier.
-__device__ __forceinline__ void stage_tile(
-    const TileBlock& b, int& rows, const Lanes& w, const size_t p0, const int P,
-    const int L, const float* __restrict__ mx, const float* __restrict__ my,
-    const float* __restrict__ ca, const float* __restrict__ cb,
-    const float* __restrict__ cd, const int* __restrict__ cnt_in) {
-  const int T = w.T;
-  const int LT = L * T;
-  if (threadIdx.x == 0) rows = 0;
-  for (int k = threadIdx.x; k < ((L + 31) / 32) * T; k += blockDim.x) b.written[k] = 0u;
-  __syncthreads();
-  for (int c = threadIdx.x; c < T; c += blockDim.x) {
-    const int n = p0 + c < static_cast<size_t>(P) ? cnt_in[p0 + c] : 0;
-    b.cnt[c] = n;
-    atomicMax(&rows, n);
-  }
-  __syncthreads();
-  // thread (row r, column c) of the block takes rows r, r + G, ... of
-  // column c: coalesced rows, one swizzle per thread
-  const int staged = rows;
-  const int c = threadIdx.x % T;
-  const int r = threadIdx.x / T;
-  const size_t p = p0 + c;
-  if (p < static_cast<size_t>(P)) {
-    const int n = b.cnt[c];
-    int o = r * T + (c ^ (r << w.swz_shift));
-#pragma unroll 4
-    for (int l = r; l < staged; l += w.G, o += w.G * T) {
-      const size_t q = static_cast<size_t>(l) * P + p;
-      const float a = ca[q];
-      const float bb = cb[q];
-      const float d = cd[q];
-      b.t[o] = mx[q];
-      b.t[LT + o] = my[q];
-      b.t[2 * LT + o] = a;
-      b.t[3 * LT + o] = bb;
-      b.t[4 * LT + o] = d;
-      const float det = a * d - bb * bb;
-      b.t[5 * LT + o] = (l < n && det > 0.0f) ? 1.0f / det : -1.0f;
-    }
-  }
-  __syncthreads();
-}
-
-// Write back the slots that a measurement stored, once every particle of
-// the tile is done (a barrier before; `rows` is the tile's largest count by
-// then, raised by each particle's final count).
-__device__ __forceinline__ void write_back(
-    const TileBlock& b, const int rows, const Lanes& w, const size_t p0, const int P,
-    const int L, float* __restrict__ mx, float* __restrict__ my, float* __restrict__ ca,
-    float* __restrict__ cb, float* __restrict__ cd) {
-  const int T = w.T;
-  const int LT = L * T;
-  const int c = threadIdx.x % T;   // rows r, r + G, ... of column c, as staged
-  const int r = threadIdx.x / T;
-  const size_t p = p0 + c;
-  if (p >= static_cast<size_t>(P)) return;
-  int o = r * T + (c ^ (r << w.swz_shift));
-  for (int l = r; l < rows; l += w.G, o += w.G * T) {
-    if (!((b.written[(l >> 5) * T + c] >> (l & 31)) & 1u)) continue;
-    const size_t q = static_cast<size_t>(l) * P + p;
-    mx[q] = b.t[o];
-    my[q] = b.t[LT + o];
-    ca[q] = b.t[2 * LT + o];
-    cb[q] = b.t[3 * LT + o];
-    cd[q] = b.t[4 * LT + o];
-  }
-}
 
 // the pose information (upper triangle of Lambda), eta and the evidence
 // log-weight of one particle
@@ -271,7 +80,7 @@ struct Acc {
 // One measurement of the proposal accumulation at the predicted pose.
 template <bool EVIDENCE>
 __device__ __forceinline__ void accumulate_proposal(
-    const TileColumn& s, const int cnt,
+    const TileColumn<false>& s, const int cnt,
     const float px, const float py, const float yaw, const float cyaw, const float syaw,
     const float p00, const float p01, const float p11, const float s_r2,
     const float scale, const float dist_z, const float bearing_z, const float cos_b,
@@ -418,7 +227,7 @@ __device__ __forceinline__ void solve_sample_pose(
 // predicted pose, on exit the sampled one.  prior_s: (s_t2, s_r2, fxy, dial).
 template <bool EVIDENCE>
 __device__ __forceinline__ void fs2_tick(
-    TileColumn& s, const int L, const float* z_s, const int* zv_s, const int mtrip,
+    TileColumn<false>& s, const int L, const float* z_s, const int* zv_s, const int mtrip,
     const float* prior_s, const float n0, const float n1, const float n2,
     float& px, float& py, float& yaw, float& cyaw, float& syaw,
     int& cnt, float& logw, const Params& prm) {
@@ -483,11 +292,11 @@ __global__ void fused_fs2_planes_kernel(
   for (int i = threadIdx.x; i < M; i += blockDim.x) b.zv[i] = zvalid[i];
   if (threadIdx.x < 4) prior_s[threadIdx.x] = prior[threadIdx.x];
   if (threadIdx.x == 0) mtrip = min(mlast[0], M);
-  stage_tile(b, rows, w, p0, P, L, mx, my, ca, cb, cd, cnt_io);
+  stage_tile(b, rows, w, p0, P, L, mx, my, ca, cb, nullptr, cd, cnt_io);
 
   const size_t p = p0 + w.i;
   if (p < static_cast<size_t>(P)) {
-    TileColumn s = column(b, w, L);
+    TileColumn<false> s = column(b, w, L);
     int cnt = b.cnt[w.i];
     float logw = logw_io[p];
     float px = pred[3 * p];
@@ -507,7 +316,7 @@ __global__ void fused_fs2_planes_kernel(
     }
   }
   __syncthreads();
-  write_back(b, rows, w, p0, P, L, mx, my, ca, cb, cd);
+  write_back(b, rows, w, p0, P, L, mx, my, ca, cb, nullptr, cd);
 }
 
 // C ticks, each with the mean-motion prediction in-kernel: the yaw wraps by
@@ -534,11 +343,11 @@ __global__ void fused_fs2_planes_multi_kernel(
   const Lanes w = lanes_of(G);
   const TileBlock b = carve(smem, L, M, w.T);
   const size_t p0 = static_cast<size_t>(blockIdx.x) * w.T;
-  stage_tile(b, rows, w, p0, P, L, mx, my, ca, cb, cd, cnt_io);
+  stage_tile(b, rows, w, p0, P, L, mx, my, ca, cb, nullptr, cd, cnt_io);
 
   const size_t p = p0 + w.i;
   const bool active = p < static_cast<size_t>(P);
-  TileColumn s = column(b, w, L);
+  TileColumn<false> s = column(b, w, L);
   int cnt = 0;
   float logw = 0.0f, px = 0.0f, py = 0.0f, yaw = 0.0f, cyaw = 0.0f, syaw = 0.0f;
   if (active) {
@@ -590,7 +399,7 @@ __global__ void fused_fs2_planes_multi_kernel(
     atomicMax(&rows, cnt);
   }
   __syncthreads();
-  write_back(b, rows, w, p0, P, L, mx, my, ca, cb, cd);
+  write_back(b, rows, w, p0, P, L, mx, my, ca, cb, nullptr, cd);
 }
 
 // The block's dynamic shared memory for a launch geometry of `tile`

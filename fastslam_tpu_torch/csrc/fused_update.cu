@@ -7,32 +7,39 @@
 // first match with the robot-frame quirk in parity), the 2x2 landmark EKF,
 // the append of an unmatched measurement, and the log-likelihood weight.
 //
-// Design: one thread per particle, reaching its slots through a DeviceColumn
-// view (measurement.cuh).  The landmark planes are [L, P] row-major,
-// so slot l of neighbouring particles sits at neighbouring addresses and every
-// row access of a warp is one coalesced 128-byte transaction.  Each thread
-// owns its particle's column, so the planes are updated in place.  The
-// matched slot is read by direct index.  A block keeps the tick's measurement
-// table ([M, 4] distance, bearing, cos b, sin b), the valid flags and the trip
-// count in shared memory, and each thread's det/validity plane (det(cov) of
-// every occupied slot, -1 for empty ones) as a [L, blockDim] shared array, so
-// association never recomputes it.
+// The per-tick kernel stages a tile of particles (tile.cuh, as the fs2
+// kernels do): a block owns T particles with G lanes each, stages the tile's
+// planes in dynamic shared memory once per tick, only the slots below the
+// tile's largest count (the five production planes and 1/det(cov); in parity
+// the det(cov) entry and the sixth, cc, plane as well), runs the M
+// measurements over that TileColumn, and writes back only the slots that a
+// measurement updated or appended.  The lanes split each association scan:
+// the packed argmin in production, the first hit under the gate in parity
+// (each lane's first hit among slots g, g + G, ..., then the smallest slot by
+// shuffle, exact because a minimum of indices does not depend on order).
 //
-// What bounds it on an H100: at P = 100,000 and L = 64 the five production
-// planes are 5 x 64 x 100,000 x 4 B = 128 MB.  The association pass re-reads
-// them for every measurement, up to ~2 GB per tick at M = 16, more than the
-// 50 MB L2 holds, so the kernel streams device memory.  Staging a particle
-// tile's planes in shared memory, as fused_fs2.cu does, is later work.
+// The chunked kernel keeps the first design: one thread per particle reaching
+// its slots through a DeviceColumn view (measurement.cuh), the [L, P]
+// planes in device memory updated in place, each thread's det/validity
+// column in shared memory.  Staging it the same way is later work.
+//
+// What bounds them on an H100: at P = 100,000 and L = 64 the five
+// production planes are 5 x 64 x 100,000 x 4 B = 128 MB.  The per-tick
+// kernel reads them once (the occupied slots) and writes back the slots
+// that changed; the scans then run in shared memory (M x 64 slots x 6
+// floats per particle, ~2.5 GB at M = 16).  The chunked kernel re-reads the
+// planes for every measurement, up to ~2 GB per tick, more than the 50 MB L2
+// holds, so it streams device memory.
 //
 // Arithmetic follows the plain PyTorch version (core/cuda_kernels.py) op for
 // op; the per-measurement device code is shared with the FastSLAM 2.0
 // kernels in measurement.cuh.
 
-#include "measurement.cuh"
+#include "tile.cuh"
 
 namespace {
 
-// Shared memory of a block: detp [L][blockDim] | z table [M][4] | valid [M]
+// One tick for a tile of T = blockDim / G particles, G lanes each.
 template <bool PARITY>
 __global__ void fused_update_planes_kernel(
     const float* __restrict__ poses, const float* __restrict__ cyaw_in,
@@ -40,41 +47,43 @@ __global__ void fused_update_planes_kernel(
     float* __restrict__ mx, float* __restrict__ my, float* __restrict__ ca,
     float* cb, float* cc, float* __restrict__ cd, int* __restrict__ cnt_io,
     const float* __restrict__ z4, const int* __restrict__ zvalid,
-    const int* __restrict__ mlast, const int P, const int L, const int M,
+    const int* __restrict__ mlast, const int P, const int L, const int M, const int G,
     const Params prm) {
   extern __shared__ float smem[];
-  float* detp_s = smem;
-  float* z_s = smem + static_cast<size_t>(L) * blockDim.x;
-  int* zv_s = reinterpret_cast<int*>(z_s + 4 * M);
-  __shared__ int mtrip;
+  __shared__ int mtrip, rows;
+  const int T = blockDim.x / G;
+  const Lanes w = lanes_of(G, T >= 32 ? 5 : __ffs(T) - 1);
+  const TileBlock b = carve<PARITY>(smem, L, M, T);
+  const size_t p0 = static_cast<size_t>(blockIdx.x) * T;
 
-  for (int i = threadIdx.x; i < 4 * M; i += blockDim.x) z_s[i] = z4[i];
-  for (int i = threadIdx.x; i < M; i += blockDim.x) zv_s[i] = zvalid[i];
+  for (int i = threadIdx.x; i < 4 * M; i += blockDim.x) b.z[i] = z4[i];
+  for (int i = threadIdx.x; i < M; i += blockDim.x) b.zv[i] = zvalid[i];
   if (threadIdx.x == 0) mtrip = min(mlast[0], M);
-  __syncthreads();
+  stage_tile<PARITY>(b, rows, w, p0, P, L, mx, my, ca, cb, cc, cd, cnt_io);
 
-  const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= static_cast<size_t>(P)) return;
-  const int stride = blockDim.x;
-  float* detp = detp_s + threadIdx.x;
-
-  int cnt = cnt_io[p];
-  float logw = logw_io[p];
-  const float px = poses[3 * p];
-  const float py = poses[3 * p + 1];
-  const float yaw = poses[3 * p + 2];
-  const float cyaw = cyaw_in[p];
-  const float syaw = syaw_in[p];
-  init_detp(p, P, L, cnt, ca, cb, cc, cd, detp, stride);
-  DeviceColumn col{mx, my, ca, cb, cc, cd, detp, stride, static_cast<size_t>(P), p, L};
-
-  for (int m = 0; m < mtrip; ++m) {
-    apply_measurement<PARITY, true>(col, L, px, py, yaw, cyaw, syaw, z_s[4 * m],
-                                    z_s[4 * m + 1], z_s[4 * m + 2], z_s[4 * m + 3],
-                                    zv_s[m] > 0, cnt, logw, prm);
+  const size_t p = p0 + w.i;
+  if (p < static_cast<size_t>(P)) {
+    TileColumn<PARITY> s = column<PARITY>(b, w, L);
+    int cnt = b.cnt[w.i];
+    float logw = logw_io[p];
+    const float px = poses[3 * p];
+    const float py = poses[3 * p + 1];
+    const float yaw = poses[3 * p + 2];
+    const float cyaw = cyaw_in[p];
+    const float syaw = syaw_in[p];
+    for (int m = 0; m < mtrip; ++m) {
+      apply_measurement<PARITY, true>(s, L, px, py, yaw, cyaw, syaw, b.z[4 * m],
+                                      b.z[4 * m + 1], b.z[4 * m + 2], b.z[4 * m + 3],
+                                      b.zv[m] > 0, cnt, logw, prm);
+    }
+    if (w.g == 0) {
+      logw_io[p] = logw;
+      cnt_io[p] = cnt;
+      atomicMax(&rows, cnt);
+    }
   }
-  logw_io[p] = logw;
-  cnt_io[p] = cnt;
+  __syncthreads();
+  write_back<PARITY>(b, rows, w, p0, P, L, mx, my, ca, cb, cc, cd);
 }
 
 // C ticks: propagate, then the measurement loop of the tick, with the
@@ -152,6 +161,25 @@ __global__ void fused_update_planes_multi_kernel(
   if (active) cnt_io[p] = cnt;
 }
 
+// The per-tick block's dynamic shared memory for a tile of `tile` particles
+// with `lanes` lanes each, or 0 if the kernel does not take that geometry
+// (core/cuda_kernels.py:motion_launch_geometry checks the same): a tile of
+// a power of two below 32 or a multiple of 32, lanes a power of two up to
+// min(tile, 32), whole warps, and the staged planes within the opt-in limit.
+size_t checked_motion_shared_bytes(const int L, const int M, const int tile,
+                                   const int lanes, const bool parity) {
+  const size_t smem = tile_shared_bytes(L, M, tile, parity ? kParityPlanes : kPlanes);
+  const bool pow2 = tile > 0 && (tile & (tile - 1)) == 0;
+  const bool tile_ok = tile % 32 == 0 ? tile > 0 : (pow2 && tile < 32);
+  const bool lanes_ok = lanes > 0 && (lanes & (lanes - 1)) == 0 && lanes <= 32
+                        && lanes <= tile;
+  if (L < 1 || M < 0 || !tile_ok || !lanes_ok || (tile * lanes) % 32 != 0
+      || tile * lanes > 1024 || smem + kStaticSmemBytes > kSmemOptInLimit) {
+    return 0;
+  }
+  return smem;
+}
+
 }  // namespace
 
 extern "C" {
@@ -165,23 +193,22 @@ int fused_update_planes_launch(
     float* logw, float* mx, float* my, float* ca, float* cb, float* cc, float* cd,
     int* cnt, const float* z4, const int* zvalid, const int* mlast, int P, int L,
     int M, int parity, float gate2, int gate_thr, float meas_noise,
-    float default_cov, float default_cov2, int threads, void* stream) {
+    float default_cov, float default_cov2, int tile, int lanes, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = checked_motion_shared_bytes(L, M, tile, lanes, parity != 0);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0) return 0;
   const Params prm{gate2, gate_thr, meas_noise, default_cov, default_cov2};
-  const dim3 grid((P + threads - 1) / threads);
-  const size_t smem = shared_bytes(L, M, threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (parity) {
-    fused_update_planes_kernel<true><<<grid, threads, smem, s>>>(
-        poses, cyaw, syaw, logw, mx, my, ca, cb, cc, cd, cnt, z4, zvalid, mlast,
-        P, L, M, prm);
-  } else {
-    fused_update_planes_kernel<false><<<grid, threads, smem, s>>>(
-        poses, cyaw, syaw, logw, mx, my, ca, cb, cc, cd, cnt, z4, zvalid, mlast,
-        P, L, M, prm);
-  }
+  const dim3 grid((P + tile - 1) / tile);
+  auto kernel = parity ? fused_update_planes_kernel<true> : fused_update_planes_kernel<false>;
+  // above 48 KB a block's dynamic shared memory needs the opt-in, per instance
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, tile * lanes, smem, static_cast<cudaStream_t>(stream)>>>(
+      poses, cyaw, syaw, logw, mx, my, ca, cb, cc, cd, cnt, z4, zvalid, mlast, P, L, M,
+      lanes, prm);
   return static_cast<int>(cudaGetLastError());
 }
 

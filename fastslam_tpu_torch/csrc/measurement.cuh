@@ -115,12 +115,13 @@ __device__ __forceinline__ int slot_key(
 // memory, `stride` floats apart.  cc aliases cb in production mode, where
 // the covariance stays symmetric and no cc plane exists.
 //
-// apply_measurement() reaches a particle's slots through such a view; the
-// fs2 kernels give it a particle tile staged in shared memory instead
-// (fused_fs2.cu: TileColumn).  A view offers
+// apply_measurement() reaches a particle's slots through such a view (the
+// chunked motion kernel); the fs2 kernels and the per-tick motion kernel
+// give it a particle tile staged in shared memory instead (tile.cuh:
+// TileColumn).  A view offers
 //   argmin(wx, wy, cnt)           production: the smallest packed key over
 //                                 the usable slots, kInvalidKey if none;
-//   first_hit(qx, qy, gate2)      parity: the first usable slot under the
+//   first_hit(qx, qy, gate2, cnt) parity: the first usable slot under the
 //                                 gate, L if none;
 //   load<PARITY>(l, ...)          slot l's mean and covariance;
 //   store<PARITY>(l, ..., det)    write slot l and its det(cov);
@@ -155,7 +156,7 @@ struct DeviceColumn {
   }
 
   __device__ __forceinline__ int first_hit(const float qx, const float qy,
-                                           const float gate2) const {
+                                           const float gate2, int) const {
     for (int l = 0; l < L; ++l) {
       const float dtp = detp[l * stride];
       if (!(dtp > 0.0f)) continue;
@@ -215,7 +216,7 @@ __device__ __forceinline__ void apply_measurement(
   bool has_match;
   if constexpr (PARITY) {
     // first hit under the gate, against the robot-frame observation
-    idx = s.first_hit(dist_z * cos_b, dist_z * sin_b, prm.gate2);
+    idx = s.first_hit(dist_z * cos_b, dist_z * sin_b, prm.gate2, cnt);
     has_match = idx < L;
   } else {
     const int kmin = s.argmin(wx, wy, cnt);

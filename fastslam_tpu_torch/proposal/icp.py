@@ -11,13 +11,20 @@ optional leading batch axis of cloud pairs: ``[N, 2]`` clouds, or
 * The best-fit rotation is the closed-form 2-D solution (an angle, never an
   SVD); point-to-line ICP solves its 3x3 normal equations by cofactors, with
   the ``|det| > 1e-12`` clamp of the reference.
-* The JAX ``lax.while_loop`` becomes a loop of ``max_iter`` iterations over
-  the batch with a per-pair ``active = ~converged`` mask: a converged pair
-  keeps its carry (``torch.where``), so each pair ends exactly where its own
-  while-loop would.  The first iteration starts from ``prev_err = err =
-  inf``, so ``|inf - err| = inf`` never reads as converged.  The host stops
-  early once no pair is active, checking every ``_CHECK_EVERY`` iterations
-  (each check is a device-to-host sync).
+* Point-to-line ICP (:func:`icp_point_to_line`, the proposal's scan match)
+  runs its whole while-loop in one call of
+  ``core/cuda_kernels.py:icp_point_to_line_fused``: on CUDA tensors one
+  kernel launch per call, each pair converging on the device; on CPU
+  tensors the kernel's plain version.  Its sums add in one fixed tree order
+  (``core/kernels.py:tree_sum``).
+* Point-to-point :func:`icp` turns the JAX ``lax.while_loop`` into a loop of
+  ``max_iter`` iterations over the batch with a per-pair ``active =
+  ~converged`` mask: a converged pair keeps its carry (``torch.where``), so
+  each pair ends exactly where its own while-loop would.  The first
+  iteration starts from ``prev_err = err = inf``, so ``|inf - err| = inf``
+  never reads as converged.  The host stops early once no pair is active,
+  checking every ``_CHECK_EVERY`` iterations (each check is a device-to-host
+  sync).
 
 Numerics note kept from the reference: rotations are carried as angles and
 applied elementwise (``x' = c x - s y``), never as ``points @ R.T`` matmuls;
@@ -100,7 +107,7 @@ def _gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _iterate(body, source: torch.Tensor, max_iter: int, tol: float) -> ICPResult:
-    """The batched while-loop of both ICP variants over ``[B, N, 2]``.
+    """The batched while-loop of point-to-point ICP over ``[B, N, 2]``.
 
     ``body(src) -> (theta, trans [B, 2], err)`` is one iteration for every
     pair; pairs that have converged keep their carry."""
@@ -179,54 +186,15 @@ def estimate_normals(points: torch.Tensor, valid: torch.Tensor
 
 
 def _icp_point_to_line(source, target, source_valid, target_valid, config):
-    normals, n_ok = estimate_normals(target, target_valid)
-    sw = source_valid.to(source.dtype)
     target = target.contiguous()
     target_valid = target_valid.contiguous()
-    # normal and its validity gathered together: [B, Mt, 3]
-    nq = torch.cat([normals, n_ok.to(source.dtype)[..., None]], dim=-1)
-
-    def body(src):
-        dist, idx = nearest_neighbors(src, target, target_valid)
-        q = _gather_points(target, idx)
-        ng = _gather_points(nq, idx)
-        n = ng[..., :2]
-        w = sw * ng[..., 2]
-
-        r = (src[..., 0] - q[..., 0]) * n[..., 0] + (src[..., 1] - q[..., 1]) * n[..., 1]
-        # J = [cross(s, n), n_x, n_y] per point
-        j0 = src[..., 0] * n[..., 1] - src[..., 1] * n[..., 0]
-        j1 = n[..., 0]
-        j2 = n[..., 1]
-
-        h00 = torch.sum(w * j0 * j0, dim=-1) + 1e-9
-        h01 = torch.sum(w * j0 * j1, dim=-1)
-        h02 = torch.sum(w * j0 * j2, dim=-1)
-        h11 = torch.sum(w * j1 * j1, dim=-1) + 1e-9
-        h12 = torch.sum(w * j1 * j2, dim=-1)
-        h22 = torch.sum(w * j2 * j2, dim=-1) + 1e-9
-        b0 = -torch.sum(w * j0 * r, dim=-1)
-        b1 = -torch.sum(w * j1 * r, dim=-1)
-        b2 = -torch.sum(w * j2 * r, dim=-1)
-
-        # 3x3 symmetric solve via cofactors
-        c00 = h11 * h22 - h12 * h12
-        c01 = h02 * h12 - h01 * h22
-        c02 = h01 * h12 - h02 * h11
-        det = h00 * c00 + h01 * c01 + h02 * c02
-        det = torch.where(torch.abs(det) > 1e-12, det, 1e-12)
-        c11 = h00 * h22 - h02 * h02
-        c12 = h01 * h02 - h00 * h12
-        c22 = h00 * h11 - h01 * h01
-        theta = (c00 * b0 + c01 * b1 + c02 * b2) / det
-        tx = (c01 * b0 + c11 * b1 + c12 * b2) / det
-        ty = (c02 * b0 + c12 * b1 + c22 * b2) / det
-
-        err = torch.sum(dist * w, dim=-1) / torch.clamp_min(torch.sum(w, dim=-1), 1e-12)
-        return theta, torch.stack([tx, ty], dim=-1), err
-
-    return _iterate(body, source.contiguous(), config.icp_max_iterations,
-                    config.icp_tolerance)
+    normals, n_ok = estimate_normals(target, target_valid)
+    theta, trans, err, iters = cuda_kernels.icp_point_to_line_fused(
+        source.contiguous(), target, source_valid.contiguous(), target_valid,
+        normals.contiguous(), n_ok.contiguous(), config.icp_max_iterations,
+        config.icp_tolerance)
+    return ICPResult(rotation=rotation_matrix(theta), translation=trans, mean_error=err,
+                     num_iters=iters, theta=theta)
 
 
 def icp_point_to_line(source: torch.Tensor, target: torch.Tensor,
@@ -235,7 +203,8 @@ def icp_point_to_line(source: torch.Tensor, target: torch.Tensor,
     """Point-to-line ICP: minimize ``(R s + t - q) . n_q`` over the target's
     local lines, one small-angle 3x3 normal-equation solve in
     (theta, tx, ty) per iteration.  Removes point-to-point ICP's bias
-    toward zero motion along walls."""
+    toward zero motion along walls.  The whole loop is one call of
+    ``cuda_kernels.icp_point_to_line_fused`` (one launch on the card)."""
     return _batched(_icp_point_to_line, source, target, source_valid, target_valid,
                     config)
 

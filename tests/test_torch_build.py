@@ -83,6 +83,11 @@ def wrapper_calls(cfg):
             meta(C), 1e-4, cfg),
         "icp_correspondences": lambda: cuda_kernels.icp_correspondences(
             meta(C, P, 2), meta(C, M, 2), meta(C, M, dtype=torch.bool)),
+        "icp_point_to_line": lambda: cuda_kernels.icp_point_to_line_fused(
+            meta(C, P, 2), meta(C, M, 2), meta(C, P, dtype=torch.bool),
+            meta(C, M, dtype=torch.bool), meta(C, M, 2), meta(C, M, dtype=torch.bool),
+            100, 1e-5),
+        "icp_sin_cos": lambda: cuda_kernels.icp_rotation_sin_cos(meta(P)),
         "ring_halo_exchange": lambda: cuda_kernels.ring_halo_exchange(
             [meta(P, 3 + 1 + 6 * L + 1) for _ in range(C)]),
         "hbm_copy": lambda: cuda_kernels.hbm_copy([meta(L, P) for _ in range(6)]

@@ -64,12 +64,8 @@ def test_per_tick_kernel_matches_plain(device, parity):
     assert cuda_kernels.LAUNCHES["fused_update_planes"] == before + 1
     want = cuda_kernels.fused_update_planes_ref(state.poses, *planes(sp),
                                                 ms.range_bearing, ms.valid, cfg)
-    for g, w in zip(got, want):
-        if w is None:
-            assert g is None
-        else:
-            # -fmad=false: the kernel rounds op for op like the plain version
-            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    # -fmad=false: the staged kernel rounds op for op like the plain version
+    assert_fs2_equal(got, want)
 
 
 def test_chunked_kernel_matches_plain(device):
@@ -301,6 +297,158 @@ def test_fs2_kernels_equal_plain_at_every_geometry(device, monkeypatch, kernel, 
     assert_fs2_equal(got, run_fs2(kernel, plain_fn, state, z, zv, noise, prior, dial, cfg))
 
 
+MOTION_P, MOTION_M = 1000, 16       # 1000 particles: a ragged last tile
+
+
+def ragged_motion_inputs(device, l, parity, seed):
+    """A planes state whose tiles mix every count from 0 to L (a fifth two
+    slots short of a full map, some full), slots 0..7 near the first
+    measurements' points (matches), the rest scattered (appends), asymmetric
+    covariances in parity mode; the tick's poses and measurements."""
+    rng = np.random.default_rng(seed)
+    p = MOTION_P
+    cfg = FastSLAMConfig(num_particles=p, max_landmarks=l, max_measurements=MOTION_M,
+                         parity_mode=parity)
+    counts = rng.integers(0, l + 1, p)
+    counts[::5] = max(l - 2, 0)
+    counts[::13] = l
+    means = rng.uniform(-9.0, 9.0, (2, l, p))
+    for k in range(min(l, 8)):
+        r, b = FS2_Z[2 * k]
+        means[:, k] = np.array([r * np.cos(b), r * np.sin(b)])[:, None] \
+            + rng.normal(0.0, 0.03, (2, p))
+    a, d = rng.uniform(0.02, 0.2, (2, l, p))
+    f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    state = init_planes_state(cfg, device).replace(
+        log_weights=f32(np.log(rng.dirichlet(np.ones(p)))),
+        lm_mx=f32(means[0]), lm_my=f32(means[1]), lm_ca=f32(a),
+        lm_cb=f32(rng.uniform(-0.01, 0.01, (l, p))),
+        lm_cc=f32(rng.uniform(-0.01, 0.01, (l, p))) if parity else None, lm_cd=f32(d),
+        lm_count=torch.from_numpy(counts.astype(np.int32)).to(device))
+    z = torch.tensor(FS2_Z, dtype=torch.float32, device=device)
+    zv = torch.ones(MOTION_M, dtype=torch.bool, device=device)
+    zv[3] = False                                      # an interior hole
+    return cfg, state, f32(rng.normal(0.0, 0.05, (p, 3))), z, zv
+
+
+def run_motion(fn, cfg, state, poses, z, zv):
+    return fn(poses, *planes(state.clone()), z, zv, cfg)
+
+
+@pytest.mark.parametrize("parity", [False, True])
+@pytest.mark.parametrize("l", [16, 64, 256])
+def test_motion_tick_kernel_equals_plain_on_ragged_mixed_tiles(device, l, parity):
+    """The staged per-tick motion kernel bit for bit: a ragged last tile,
+    tiles of mixed counts, L up to 256 (parity's seven planes still in a
+    tile of 32), and (L = 16, 64) maps that fill to L within the tick."""
+    cfg, state, poses, z, zv = ragged_motion_inputs(device, l, parity, l + parity)
+    tile = cuda_kernels.motion_launch_geometry(l, MOTION_M, parity)[0]
+    assert int(state.lm_count[:tile].min()) < int(state.lm_count[:tile].max())
+    got = run_motion(cuda_kernels.fused_update_planes, cfg, state, poses, z, zv)
+    torch.cuda.synchronize()
+    want = run_motion(cuda_kernels.fused_update_planes_ref, cfg, state, poses, z, zv)
+    assert_fs2_equal(got, want)
+    before, after = state.lm_count, want[-1]
+    if l < 256:     # at 256 the scattered landmarks match what would append
+        assert bool(((before < l) & (after == l)).any())   # a map filled to L
+    assert bool((after > before).any())                    # appended
+    assert bool((want[0] != state.log_weights).any())      # weighted
+
+
+@pytest.mark.parametrize("geometry", [(16, 8), (32, 2), (32, 4), (32, 8), (64, 4), (8, 4),
+                                      (16, 16)])
+@pytest.mark.parametrize("parity", [False, True])
+def test_motion_tick_kernel_equals_plain_at_every_geometry(device, monkeypatch, parity,
+                                                           geometry):
+    """The results do not depend on the tile or the lanes per particle."""
+    cfg, state, poses, z, zv = ragged_motion_inputs(device, 64, parity, 7)
+    monkeypatch.setattr(cuda_kernels, "MOTION_TILE", geometry[0])
+    monkeypatch.setattr(cuda_kernels, "MOTION_LANES", geometry[1])
+    got = run_motion(cuda_kernels.fused_update_planes, cfg, state, poses, z, zv)
+    torch.cuda.synchronize()
+    assert_fs2_equal(got, run_motion(cuda_kernels.fused_update_planes_ref, cfg, state,
+                                     poses, z, zv))
+
+
+def fused_icp_inputs(device, b, n, mt, seed):
+    """Random cloud pairs: the source a moved copy of part of the target
+    (so ICP converges), duplicate targets (ties), a tenth of the targets and
+    source points invalid, the last pair's target all invalid; the target's
+    normals as the proposal computes them."""
+    from fastslam_tpu_torch.proposal.icp import estimate_normals, rotate_points
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tgt = torch.randn((b, mt, 2), generator=gen, device=device) * 3.0
+    if mt > 3:
+        tgt[:, mt // 2:mt // 2 + mt // 4] = tgt[:, :mt // 4]            # ties
+    take = torch.randint(0, mt, (b, n), generator=gen, device=device)
+    src = torch.gather(tgt, 1, take[..., None].expand(b, n, 2))
+    src = rotate_points(src, 0.03) + 0.05 + 0.01 * torch.randn(
+        (b, n, 2), generator=gen, device=device)
+    tv = torch.rand((b, mt), generator=gen, device=device) < 0.9
+    sv = torch.rand((b, n), generator=gen, device=device) < 0.9
+    tv[-1] = False
+    normals, n_ok = estimate_normals(tgt, tv)
+    return src.contiguous(), tgt, sv, tv, normals.contiguous(), n_ok.contiguous()
+
+
+def assert_icp_equal(got, want):
+    """theta, translation, mean error (NaN where the plain version has NaN)
+    and iterations bit for bit."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if w.is_floating_point():
+            nan = torch.isnan(w)
+            assert torch.equal(torch.isnan(g), nan)
+            assert torch.equal(g[~nan], w[~nan])
+        else:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b,n,mt,tol", [(37, 180, 180, 1e-5), (2, 180, 180, 1e-5),
+                                        (5, 7, 9, 1e-5), (1, 1, 1, 1e-5),
+                                        (3, 180, 180, 0.0), (2, 300, 2500, 1e-5),
+                                        (2, 2000, 700, 1e-5)])
+def test_fused_icp_kernel_matches_plain(device, b, n, mt, tol):
+    """One launch per call, every output bit for bit: batches of 180-point
+    scans (37 pairs, the online 2), tiny clouds (sums padded to 8 and to 1),
+    pairs held to max_iter (tol 0), targets across several shared-memory
+    tiles (2500), and per-point arrays in device-memory scratch (2000
+    points); each batch's last target all invalid (a NaN mean error)."""
+    args = fused_icp_inputs(device, b, n, mt, b * n + mt)
+    before = cuda_kernels.LAUNCHES["icp_point_to_line"]
+    got = cuda_kernels.icp_point_to_line_fused(*args, 100, tol)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["icp_point_to_line"] == before + 1
+    want = cuda_kernels.icp_point_to_line_ref(*args, 100, tol)
+    assert_icp_equal(got, want)
+    assert int(got[3][-1]) == 100 and bool(torch.isnan(got[2][-1]))
+    if tol == 0.0:
+        assert bool((got[3] == 100).all())
+
+
+@pytest.mark.parametrize("geometry", [(32, 1), (128, 4), (256, 8), (512, 16), (1024, 32)])
+def test_fused_icp_kernel_equals_plain_at_every_geometry(device, monkeypatch, geometry):
+    args = fused_icp_inputs(device, 9, 180, 180, 3)
+    monkeypatch.setattr(cuda_kernels, "ICP_THREADS", geometry[0])
+    monkeypatch.setattr(cuda_kernels, "ICP_LANES", geometry[1])
+    got = cuda_kernels.icp_point_to_line_fused(*args, 100, 1e-5)
+    torch.cuda.synchronize()
+    assert_icp_equal(got, cuda_kernels.icp_point_to_line_ref(*args, 100, 1e-5))
+
+
+def test_fused_icp_rotation_is_torch_trig(device):
+    """The kernel's sinf/cosf (built with -fmad=false) equal torch.sin and
+    torch.cos of a CUDA tensor bit for bit."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = (torch.rand(4_000_000, generator=gen, device=device) * 2 - 1) * 4 * np.pi
+    x = torch.cat([x, torch.tensor([0.0, -0.0, np.pi, -np.pi, 1e30, -1e30, 1e-45],
+                                   device=device)])
+    s, c = cuda_kernels.icp_rotation_sin_cos(x)
+    torch.cuda.synchronize()
+    assert torch.equal(s, torch.sin(x)) and torch.equal(c, torch.cos(x))
+
+
 def small_log(num_ticks=52):
     from fastslam_tpu_torch.drivers.replay import record_log
     from fastslam_tpu_torch.drivers.sim_world import SimWorld
@@ -395,7 +543,8 @@ def test_icp_and_adaptive_paths_run_through_the_kernels(device):
     runs = [replay_chunked(log, cfg, chunk_size=8, device=device) for _ in range(2)]
     delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
     assert delta["fused_fs2_planes_multi"] == 12 and delta["fused_fs2_planes"] == 8
-    assert delta["icp_correspondences"] > 0
+    # the ICP stage is one fused call per replay; the search alone never runs
+    assert delta["icp_point_to_line"] == 2 and delta["icp_correspondences"] == 0
     a, b = (np.asarray(h.est_poses) for h in runs)
     np.testing.assert_array_equal(a, b)
     assert runs[0].metrics()["ate_rmse_m"] < 0.25
@@ -403,7 +552,8 @@ def test_icp_and_adaptive_paths_run_through_the_kernels(device):
     hist = run_driver(ReplayDriver(small_log(24)), cfg, device=device)
     delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
     assert delta["fused_fs2_planes"] == 24 and delta["fused_fs2_planes_multi"] == 0
-    assert delta["icp_correspondences"] > 0
+    # one fused ICP launch per tick with a previous scan
+    assert delta["icp_point_to_line"] == 23 and delta["icp_correspondences"] == 0
     assert np.isfinite(np.asarray(hist.est_poses)).all()
 
 

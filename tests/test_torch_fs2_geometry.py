@@ -54,7 +54,9 @@ def test_a_larger_tile_shrinks_only_to_fit(monkeypatch, tile, lanes, want):
 
 
 def test_the_kernels_launch_with_the_same_bytes_and_limits():
-    text = (_build.CSRC / "fused_fs2.cu").read_text()
+    # the staged tile's layout lives in csrc/tile.cuh, shared with the
+    # per-tick motion kernel; the fs2 launchers use its production planes
+    text = (_build.CSRC / "tile.cuh").read_text()
     constant = lambda name: int(re.search(rf"{name} = (\d+);", text).group(1))
     assert constant("kPlanes") == 6
     assert constant("kSmemOptInLimit") == LIMIT == cuda_kernels.SMEM_OPT_IN_BYTES
@@ -62,4 +64,7 @@ def test_the_kernels_launch_with_the_same_bytes_and_limits():
     body = re.search(r"inline size_t tile_shared_bytes\([^)]*\) \{(.*?)\n\}", text, re.S)
     terms = re.sub(r"static_cast<size_t>|\s", "", body.group(1))
     # the same sum as fs2_shared_bytes: planes, written bits, counts, tables
-    assert terms == "return((kPlanes)*L*T+((L+31)/32)*T+T+5*(M))*sizeof(float);"
+    assert terms == "return((planes)*L*T+((L+31)/32)*T+T+5*(M))*sizeof(float);"
+    fs2 = (_build.CSRC / "fused_fs2.cu").read_text()
+    assert '#include "tile.cuh"' in fs2
+    assert "tile_shared_bytes(L, M, tile)" in fs2   # the default: kPlanes
