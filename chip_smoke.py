@@ -8,16 +8,20 @@ Phases, one line each (or more):
 1. build the CUDA kernels from ``fastslam_tpu_torch/csrc`` with nvcc, and
    print each kernel instance's registers, spills and static shared memory
    from the ``ptxas`` report, the staged kernels' tile, lanes and dynamic
-   shared memory at the bench geometry (fs2 and the per-tick motion kernel,
-   both modes), and the fused ICP kernel's layout at 180 x 180 points;
+   shared memory at the bench geometry (fs2, and both motion kernels in
+   both modes with their ptxas lines), and the fused ICP kernel's layout at
+   180 x 180 points;
 2. the per-tick motion kernel (a staged tile) against its plain PyTorch
    version at the bench geometry (P=100,000 particles, L=64 landmark slots,
    M=16 measurements), production and parity, from a state seeded by 3
    plain ticks, and at a ragged P=1,000 with L in {16, 64, 256}, tiles of
    mixed counts and maps filling to L within the tick, both modes: every
    output bit for bit;
-3. the chunked motion kernel against its plain version, C=16 ticks, bit for
-   bit;
+3. the chunked motion kernel (a tile staged once per chunk) against its
+   plain version, C=16 ticks, bit for bit: at the bench geometry in both
+   modes, at a ragged P=1,000 with L in {16, 64, 256}, tiles of mixed
+   counts and maps filling to L within the chunk, both modes, and in parity
+   at L=512 (a tile of 16);
 4. the motion main path: record a 300-tick synthetic log and replay it with
    ``replay_chunked`` on the GPU at P=100,000, L=64, chunk 16; the launch
    counters must show 18 chunked and 12 per-tick motion launches and no fs2
@@ -38,8 +42,8 @@ Phases, one line each (or more):
    P=256, L=16 with the same draws; estimates and final state within
    atol = rtol = 1e-4;
 9. kernel and plain times per tick, with CUDA events, and device times
-   under ``torch.profiler``; the per-tick motion kernel at each launch
-   geometry of ``MOTION_GEOMETRIES`` and the fs2 kernels at each of
+   under ``torch.profiler``; both motion kernels at each launch geometry of
+   ``MOTION_GEOMETRIES`` and the fs2 kernels at each of
    ``FS2_GEOMETRIES`` (tile, lanes), each bit for bit against the plain
    versions, then timed in turns; the ICP nearest-neighbour kernel's time
    per call on the adaptive replay's batch of cloud pairs beside its plain
@@ -162,7 +166,8 @@ PROBE_TILE, PROBE_PASSES = 256, 256
 # the fs2 kernels' launch geometries timed in phase 9: (particles per tile,
 # lanes per particle)
 FS2_GEOMETRIES = ((128, 1), (64, 1), (64, 2), (64, 4), (32, 2), (32, 4), (32, 8))
-# the per-tick motion kernel's launch geometries timed in phase 9
+# the motion kernels' launch geometries timed in phase 9 (both kernels take
+# motion_launch_geometry's one geometry)
 MOTION_GEOMETRIES = ((16, 8), (32, 2), (32, 4), (32, 8), (64, 2), (64, 4), (16, 16))
 # the fused ICP kernel's: (threads per cloud pair, lanes per source point)
 ICP_GEOMETRIES = ((128, 4), (256, 4), (256, 8), (512, 8), (512, 16), (1024, 16), (1024, 32))
@@ -399,33 +404,75 @@ def ragged_motion_inputs(l, parity, seed):
     return cfg, state, poses, z, zv
 
 
+def ragged_motion_chunk(l, parity, seed, gen):
+    """The ragged state of :func:`ragged_motion_inputs` and a chunk of C
+    ticks of its measurements under :func:`chunk_motion`'s motion with
+    noise: the same measurements land elsewhere on each tick, so slots
+    appended on one tick are scanned on the next and maps fill to L."""
+    import torch
+
+    from fastslam_tpu_torch.core import kernels
+
+    cfg, state, _, z, zv = ragged_motion_inputs(l, parity, seed)
+    d = kernels.draw(gen, RAGGED_P, C)
+    rotating, rots, trans = chunk_motion()
+    noisy_rot = torch.where(rotating[:, None], rots[:, None] + 0.01 * d.rot, 0.0)
+    noisy_trans = torch.where(rotating[:, None], 0.0, trans[:, None] + 0.05 * d.trans)
+    return (cfg, state, z[None].expand(C, -1, -1).contiguous(),
+            zv[None].expand(C, -1).contiguous(), noisy_rot, noisy_trans)
+
+
+def run_chunk(fn, cfg, state, z, zv, noisy_rot, noisy_trans):
+    """One call of a chunked motion function on a copy of ``state``."""
+    s = state.clone()
+    return fn(s.poses, s.log_weights, *args_of(s)[1:], z, zv, noisy_rot, noisy_trans, cfg)
+
+
 def phase3(gen, ms):
     import torch
 
     from fastslam_tpu_torch.core import cuda_kernels, kernels
 
-    cfg = config()
-    state = seeded_state(cfg, gen, ms)
-    d = kernels.draw(gen, P, C)
-    rotating, rots, trans = chunk_motion()
-    noisy_rot = torch.where(rotating[:, None], rots[:, None] + cfg.rotation_noise * d.rot, 0.0)
-    noisy_trans = torch.where(rotating[:, None], 0.0,
-                              trans[:, None] + cfg.translation_noise * d.trans)
-    z, zv = tiled(ms)
-    sk, sp = state.clone(), state.clone()
-    before = state.lm_count.clone()
-    got = cuda_kernels.fused_update_planes_multi(
-        state.poses, state.log_weights, *args_of(sk)[1:], z, zv, noisy_rot,
-        noisy_trans, cfg)
-    torch.cuda.synchronize()
-    want = cuda_kernels.fused_update_planes_multi_ref(
-        state.poses, state.log_weights, *args_of(sp)[1:], z, zv, noisy_rot,
-        noisy_trans, cfg)
-    err = compare_exact("chunked", got, want)
-    appends = int((want[-1] > before).sum())
-    phase(3, f"chunked C={C} production: every output (trajectories, planes, lm_count) "
-             f"equal to the plain version bit for bit, appended {appends}")
-    return err
+    worst = 0.0
+    for parity in (False, True):
+        cfg = config(parity_mode=parity)
+        state = seeded_state(cfg, gen, ms)
+        d = kernels.draw(gen, P, C)
+        rotating, rots, trans = chunk_motion()
+        noisy_rot = torch.where(rotating[:, None], rots[:, None] + cfg.rotation_noise * d.rot,
+                                0.0)
+        noisy_trans = torch.where(rotating[:, None], 0.0,
+                                  trans[:, None] + cfg.translation_noise * d.trans)
+        z, zv = tiled(ms)
+        args = (cfg, state, z, zv, noisy_rot, noisy_trans)
+        got = run_chunk(cuda_kernels.fused_update_planes_multi, *args)
+        torch.cuda.synchronize()
+        want = run_chunk(cuda_kernels.fused_update_planes_multi_ref, *args)
+        worst = max(worst, compare_exact(f"chunked parity={parity}", got, want))
+        appends = int((want[-1] > state.lm_count).sum())
+        phase(3, f"chunked C={C} {'parity' if parity else 'production'}: every output "
+                 f"(trajectories, planes, lm_count) equal to the plain version bit for bit, "
+                 f"appended {appends}")
+    for l, parity in [(l, parity) for l in (16, 64, 256) for parity in (False, True)] \
+            + [(512, True)]:
+        args = ragged_motion_chunk(l, parity, 30 + l + parity, gen)
+        state = args[1]
+        tile = cuda_kernels.motion_launch_geometry(l, RAGGED_M, parity)[0]
+        first = state.lm_count[:tile]
+        if not int(first.min()) < int(first.max()):
+            raise AssertionError("ragged motion chunk: the first tile's counts are not mixed")
+        got = run_chunk(cuda_kernels.fused_update_planes_multi, *args)
+        torch.cuda.synchronize()
+        want = run_chunk(cuda_kernels.fused_update_planes_multi_ref, *args)
+        compare_exact(f"chunked L={l} parity={parity}", got, want)
+        before, after = state.lm_count, want[-1]
+        filled = int(((before < l) & (after == l)).sum())
+        if (l <= 256 and not filled) or not bool((after > before).any()):
+            raise AssertionError(f"ragged motion chunk L={l}: no map filled to L ({filled})")
+        phase(3, f"chunked C={C} {'parity' if parity else 'production'} L={l} P={RAGGED_P} "
+                 f"(tiles of {tile}, the last ragged, counts mixed): every output equal to "
+                 f"the plain version bit for bit, {filled} maps filled to L in the chunk")
+    return worst
 
 
 def replay_main_path(n, log, cfg, kernels_run, ate_bar):
@@ -699,7 +746,7 @@ def filter_bounds(fp):
     fs2_tick, fs2_chunk = "fused_fs2_planes", "fused_fs2_planes_multi"
     return {
         tick: bound_ms(planes[tick] + rows, motion_ops(tick)),
-        chunk: bound_ms((planes[chunk] + rows + 8 * C * P * 4) / C,   # motion rows, traj
+        chunk: bound_ms((planes[chunk] + rows + 6 * C * P * 4) / C,   # motion rows, traj
                         motion_ops(chunk)),
         fs2_tick: bound_ms(planes[fs2_tick] + rows + 6 * P * 4, fs2_ops(fs2_tick)),
         fs2_chunk: bound_ms((planes[fs2_chunk] + rows + 7 * C * P * 4) / C,  # noise, traj
@@ -926,7 +973,12 @@ def phase9(gen, ms, batch):
         "fused_update_planes_kernel", reps=5)
     phase(9, "fused_update_planes: device time per launch under torch.profiler: "
              + (f"{us:.2f} us" if us is not None else "no device event seen"))
-    motion_geometry_sweep(sk, tick)
+    us = profiled_device_us(lambda: chunk(cuda_kernels.fused_update_planes_multi)(sk),
+                            "fused_update_planes_multi_kernel", reps=5)
+    phase(9, "fused_update_planes_multi: device time per launch under torch.profiler: "
+             + (f"{us:.2f} us ({us / C / 1e3:.4f} ms/tick)" if us is not None
+                else "no device event seen"))
+    motion_geometry_sweep(sk, tick, chunk)
     device_us = profiled_device_us(lambda: cuda_kernels.icp_correspondences(pre, tgt, tv),
                                    "icp_nn_kernel")
     phase(9, f"{ICP}: device time per launch under torch.profiler: "
@@ -1044,8 +1096,8 @@ def fs2_geometry_sweep(state, fs2_tick, fs2_chunk):
 
 
 def at_motion_geometry(geometry, run):
-    """``run()`` with the per-tick motion kernel launched at ``geometry``
-    (tile, lanes) in place of the wrapper's own."""
+    """``run()`` with the motion kernels launched at ``geometry`` (tile,
+    lanes) in place of the wrappers' own."""
     from fastslam_tpu_torch.core import cuda_kernels
 
     saved = cuda_kernels.MOTION_TILE, cuda_kernels.MOTION_LANES
@@ -1056,37 +1108,52 @@ def at_motion_geometry(geometry, run):
         cuda_kernels.MOTION_TILE, cuda_kernels.MOTION_LANES = saved
 
 
-def motion_geometry_sweep(state, tick):
-    """The per-tick motion kernel at each launch geometry of
-    MOTION_GEOMETRIES: every output bit for bit against the plain version
-    at the bench state (production) and on the ragged L=64 state of phase 2
-    (both modes), then ms per tick (production), in turns over the
-    geometries forward and backward."""
+def motion_geometry_sweep(state, tick, chunk):
+    """The motion kernels at each launch geometry of MOTION_GEOMETRIES:
+    every output bit for bit against the plain versions at the bench state
+    (production) and on the ragged L=64 states of phases 2 and 3 (both
+    modes), then ms per tick (production), in turns over the geometries
+    forward and backward."""
+    import torch
+
     from fastslam_tpu_torch.core import cuda_kernels
 
     chosen = cuda_kernels.motion_launch_geometry(L, M, False)
-    kernel, plain = tick(cuda_kernels.fused_update_planes), \
-        tick(cuda_kernels.fused_update_planes_ref)
-    want = plain(state.clone())
+    runs = {"per-tick": (tick(cuda_kernels.fused_update_planes),
+                         tick(cuda_kernels.fused_update_planes_ref), 20, 1),
+            "chunked": (chunk(cuda_kernels.fused_update_planes_multi),
+                        chunk(cuda_kernels.fused_update_planes_multi_ref), 5, C)}
+    want = {name: plain(state.clone()) for name, (_, plain, _, _) in runs.items()}
     ragged = [ragged_motion_inputs(64, parity, seed=90 + parity) for parity in (False, True)]
     ragged_want = [cuda_kernels.fused_update_planes_ref(poses, *args_of(s.clone()), z, zv, c)
                    for c, s, poses, z, zv in ragged]
+    gen = torch.Generator(device=DEVICE).manual_seed(92)
+    chunks = [ragged_motion_chunk(64, parity, 92 + parity, gen) for parity in (False, True)]
+    chunks_want = [run_chunk(cuda_kernels.fused_update_planes_multi_ref, *a) for a in chunks]
     for g in MOTION_GEOMETRIES:
-        compare_exact(f"motion per-tick at {g}",
-                      at_motion_geometry(g, lambda: kernel(state.clone())), want)
+        for name, (kernel, _, _, _) in runs.items():
+            compare_exact(f"motion {name} at {g}",
+                          at_motion_geometry(g, lambda: kernel(state.clone())), want[name])
         for (c, s, poses, z, zv), w in zip(ragged, ragged_want):
             compare_exact(f"motion per-tick at {g}, parity {c.parity_mode}", at_motion_geometry(
                 g, lambda: cuda_kernels.fused_update_planes(poses, *args_of(s.clone()), z, zv,
                                                             c)), w)
+        for a, w in zip(chunks, chunks_want):
+            compare_exact(f"motion chunked at {g}, parity {a[0].parity_mode}",
+                          at_motion_geometry(g, lambda: run_chunk(
+                              cuda_kernels.fused_update_planes_multi, *a)), w)
     ms = {}
     for g in MOTION_GEOMETRIES + MOTION_GEOMETRIES[::-1]:
-        ms.setdefault(g, []).append(at_motion_geometry(g, lambda: time_ms(
-            lambda: kernel(state), 20)))
+        for name, (kernel, _, reps, ticks) in runs.items():
+            ms.setdefault((g, name), []).append(
+                at_motion_geometry(g, lambda: time_ms(lambda: kernel(state), reps)) / ticks)
     for g in MOTION_GEOMETRIES:
-        phase(9, f"motion per-tick launch geometry {g[0]} particles x {g[1]} lanes"
+        phase(9, f"motion launch geometry {g[0]} particles x {g[1]} lanes"
                  f"{' (MOTION_TILE, MOTION_LANES)' if g == chosen else ''}: equal to the "
-                 f"plain version bit for bit; {min(ms[g]):.4f} ms/tick (runs "
-                 f"{' / '.join(f'{x:.4f}' for x in ms[g])})")
+                 f"plain versions bit for bit; "
+                 + ", ".join(f"{name} {min(ms[g, name]):.4f} ms/tick (runs "
+                             f"{' / '.join(f'{x:.4f}' for x in ms[g, name])})"
+                             for name in runs))
 
 
 def adaptive_config(**kw):
@@ -1781,12 +1848,16 @@ def main() -> int:
     tile, lanes = cuda_kernels.fs2_launch_geometry(L, M)
     phase(1, f"fs2 kernels at L={L}, M={M}: tiles of {tile} particles x {lanes} lanes, "
              f"{cuda_kernels.fs2_shared_bytes(L, M, tile)} B of dynamic shared memory per block")
-    for parity in (False, True):
-        tile, lanes = cuda_kernels.motion_launch_geometry(L, M, parity)
-        phase(1, f"per-tick motion kernel at L={L}, M={M}, {'parity' if parity else 'production'}: "
-                 f"tiles of {tile} particles x {lanes} lanes, "
-                 f"{cuda_kernels.motion_shared_bytes(L, M, tile, parity)} B of dynamic shared "
-                 f"memory per block")
+    for kernel in ("per-tick", "chunked"):
+        instance = "fused_update_planes_multi_kernel" if kernel == "chunked" \
+            else "fused_update_planes_kernel"
+        for parity in (False, True):
+            tile, lanes = cuda_kernels.motion_launch_geometry(L, M, parity)
+            ptxas = [line for line in regs if line.startswith(f"{instance}<{int(parity)}>")]
+            phase(1, f"{kernel} motion kernel at L={L}, M={M}, "
+                     f"{'parity' if parity else 'production'}: tiles of {tile} particles x "
+                     f"{lanes} lanes, {cuda_kernels.motion_shared_bytes(L, M, tile, parity)} B "
+                     f"of dynamic shared memory per block; ptxas {'; '.join(ptxas) or 'n/a'}")
     p2, smem, in_scratch = cuda_kernels.icp_fused_layout(180, 180)
     phase(1, f"fused ICP kernel at 180 x 180 points: {cuda_kernels.ICP_THREADS} threads x "
              f"{cuda_kernels.ICP_LANES} lanes per pair, sums padded to {p2}, {smem} B of dynamic "

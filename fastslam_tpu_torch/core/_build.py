@@ -38,8 +38,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "fused_update_planes_launch": [_I] + [_P] * 14 + [_I] * 4
     + [_F, _I, _F, _F, _F, _I, _I, _P],
-    "fused_update_planes_multi_launch": [_I] + [_P] * 22 + [_I] * 5
-    + [_F, _I, _F, _F, _F, _I, _P],
+    "fused_update_planes_multi_launch": [_I] + [_P] * 20 + [_I] * 5
+    + [_F, _I, _F, _F, _F, _I, _I, _P],
     "fused_fs2_planes_launch": [_I] + [_P] * 16 + [_I] * 4
     + [_F, _I, _F, _F, _F, _I, _I, _P],
     "fused_fs2_planes_multi_launch": [_I] + [_P] * 20 + [_I] * 5

@@ -28,15 +28,14 @@ Counterpart of ``fastslam_tpu/core/pallas_kernels.py``:
 per-tick motion kernel: it transposes to planes and back, as the JAX
 package's wrapper of the same name does.
 
-The fs2 kernels and the per-tick motion kernel stage a tile of particles'
-planes in shared memory for the tick (the chunk), with a few lanes per
-particle (:func:`fs2_launch_geometry`, :func:`motion_launch_geometry`;
-``csrc/tile.cuh``); the chunked motion kernel runs one thread per particle
-over the planes in device memory; the four share their per-measurement
-device code (``csrc/measurement.cuh``).  The ICP search splits each source
-point's scan over a few lanes; the fused point-to-line kernel runs one block
-per cloud pair (:func:`icp_fused_layout`); the exchange kernel one thread
-per 16 bytes.
+The four filter kernels stage a tile of particles' planes in shared memory
+for the tick (the per-tick kernels) or the chunk (the chunked ones), with a
+few lanes per particle (:func:`fs2_launch_geometry`,
+:func:`motion_launch_geometry`; ``csrc/tile.cuh``), and share their
+per-measurement device code (``csrc/measurement.cuh``).  The ICP search
+splits each source point's scan over a few lanes; the fused point-to-line
+kernel runs one block per cloud pair (:func:`icp_fused_layout`); the
+exchange kernel one thread per 16 bytes.
 ``core/_build.py`` compiles and loads them.
 
 Each wrapper dispatches on the device of the tensors it is given:
@@ -78,11 +77,9 @@ _PI = math.pi
 # usable (finite, non-negative) distance key
 _INVALID_KEY = 0x7F8000FF
 
-# shared memory a block may use without an opt-in attribute, and the most
-# any kernel declares statically (trip count, motion and prior rows)
-_SMEM_BYTES = 48 * 1024
+# the most shared memory any kernel declares statically (trip count, rows,
+# motion and prior rows)
 _STATIC_SMEM_BYTES = 64
-_MAX_THREADS = 128
 # the most shards one exchange launch takes (csrc/ring_halo.cu RING_MAX_SHARDS)
 RING_MAX_SHARDS = 64
 # the copy probe's buffers (six [L, P] planes and one [1, P] row) and the
@@ -95,7 +92,8 @@ SMEM_OPT_IN_BYTES = 232_448
 # shared memory) and lanes per particle, chosen by timing the candidates at
 # P = 100,000, L = 64, M = 16 (chip_smoke.py phase 9, PERF.md §6)
 FS2_TILE, FS2_LANES = 32, 4
-# the per-tick motion kernel's launch geometry, timed the same way (phase 9)
+# the motion kernels' launch geometry (per tick and chunked), timed the same
+# way (phase 9)
 MOTION_TILE, MOTION_LANES = 32, 4
 # the fused point-to-line ICP kernel: threads per cloud pair and lanes per
 # source point, the fastest of seven at both the online (2 pairs) and the
@@ -1052,18 +1050,6 @@ def _motion_table(rot_eff, trans_eff, c: int, device):
                         torch.sin(rot)], dim=-1).contiguous()
 
 
-def _threads_per_block(l: int, m: int) -> int:
-    """Threads per block of the chunked motion kernel, such that the block's
-    det/validity plane (``L * threads`` floats) and the tick's measurement
-    table fit in ``_SMEM_BYTES`` of shared memory."""
-    table = 5 * m * 4 + _STATIC_SMEM_BYTES
-    threads = min(_MAX_THREADS, (_SMEM_BYTES - table) // (4 * l) // 32 * 32)
-    if threads < 32:
-        raise ValueError(f"{l} landmark slots and {m} measurements do not fit "
-                         "a 32-thread block's shared memory")
-    return threads
-
-
 def fs2_shared_bytes(l: int, m: int, tile: int) -> int:
     """Dynamic shared memory of an fs2 block of ``tile`` particles
     (``csrc/fused_fs2.cu``: ``tile_shared_bytes``): six ``[L, tile]`` planes
@@ -1097,22 +1083,23 @@ def fs2_launch_geometry(l: int, m: int) -> Tuple[int, int]:
 
 
 def motion_shared_bytes(l: int, m: int, tile: int, parity: bool) -> int:
-    """Dynamic shared memory of a per-tick motion block of ``tile``
-    particles (``csrc/tile.cuh``: ``tile_shared_bytes``): the fs2 layout's
-    six planes in production, seven in parity (det(cov) in place of 1/det,
-    and cc), then the written bits, counts and the measurement table."""
+    """Dynamic shared memory of a motion block of ``tile`` particles
+    (``csrc/tile.cuh``: ``tile_shared_bytes``): the fs2 layout's six planes
+    in production, seven in parity (det(cov) in place of 1/det, and cc),
+    then the written bits, counts and the measurement table."""
     planes = 7 if parity else 6
     return 4 * (planes * l * tile + (l + 31) // 32 * tile + tile + 5 * m)
 
 
 def motion_launch_geometry(l: int, m: int, parity: bool) -> Tuple[int, int]:
-    """``(tile, lanes)`` of the per-tick motion kernel at L slots and M
-    measurements: ``(MOTION_TILE, MOTION_LANES)``, the tile halved until the
-    block fits the 227 KB a block may opt into, down to one warp of threads;
-    raises when that does not fit.  The kernel takes a tile of a multiple of
-    32 or a power of two below 32 particles, with a power of two up to
-    ``min(tile, 32)`` lanes each, in whole warps (``csrc/fused_update.cu``:
-    ``checked_motion_shared_bytes``)."""
+    """``(tile, lanes)`` of the motion kernels (per tick and chunked) at L
+    slots and M measurements: ``(MOTION_TILE, MOTION_LANES)``, the tile
+    halved until the block fits the 227 KB a block may opt into, down to one
+    warp of threads; raises when that does not fit.  The kernels take a tile
+    of a multiple of 32 or a power of two below 32 particles, with a power
+    of two up to ``min(tile, 32)`` lanes each, in whole warps
+    (``csrc/fused_update.cu``: ``checked_motion_shared_bytes``, which both
+    launchers call)."""
     tile, lanes = MOTION_TILE, MOTION_LANES
     if l < 1:
         raise ValueError(f"the motion kernel takes at least one landmark slot, got {l}")
@@ -1275,23 +1262,24 @@ def fused_update_planes_multi(poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb,
 
     l, p = lm_mx.shape
     c, m = z.shape[0], z.shape[1]
+    tile, lanes = motion_launch_geometry(l, m, config.parity_mode)
     z4, zvalid, mlast = _measurement_table(z, z_valid)
     cyaw = torch.cos(poses[:, 2]).contiguous()
     syaw = torch.sin(poses[:, 2]).contiguous()
-    cnr = torch.cos(noisy_rot)
-    snr = torch.sin(noisy_rot)
     traj = torch.empty((4, c, p), dtype=torch.float32, device=device)
     cc = lm_cc if config.parity_mode else lm_cb
+    # the kernel takes cos/sin of noisy_rot itself (cosf/sinf, equal to
+    # torch.cos/torch.sin on the card bit for bit)
     _launch(
         _build.load().fused_update_planes_multi_launch, device,
         _ptr(poses), _ptr(cyaw), _ptr(syaw), _ptr(log_weights),
-        _ptr(noisy_rot), _ptr(noisy_trans), _ptr(cnr), _ptr(snr),
+        _ptr(noisy_rot), _ptr(noisy_trans),
         _ptr(lm_mx), _ptr(lm_my), _ptr(lm_ca), _ptr(lm_cb), _ptr(cc), _ptr(lm_cd),
         _ptr(lm_count), _ptr(z4), _ptr(zvalid), _ptr(mlast),
         _ptr(traj[0]), _ptr(traj[1]), _ptr(traj[2]), _ptr(traj[3]),
         ctypes.c_int(p), ctypes.c_int(l), ctypes.c_int(m), ctypes.c_int(c),
         ctypes.c_int(int(config.parity_mode)), *_gate_args(config),
-        ctypes.c_int(_threads_per_block(l, m)),
+        ctypes.c_int(tile), ctypes.c_int(lanes),
     )
     LAUNCHES["fused_update_planes_multi"] += 1
     return (traj[0], traj[1], traj[2], traj[3], lm_mx, lm_my, lm_ca, lm_cb,

@@ -1,8 +1,8 @@
 // Per-particle device code shared by the fused kernels (fused_update.cu,
 // fused_fs2.cu): polynomial trig, the packed-argmin key and one measurement
 // through association, 2x2 landmark EKF, append and weighting, over a view
-// of the particle's landmark slots (in device memory, or staged in shared
-// memory).
+// of the particle's landmark slots staged in shared memory (tile.cuh:
+// TileColumn).
 //
 // Arithmetic follows the plain PyTorch versions (core/cuda_kernels.py) op for
 // op.  Build with -fmad=false so no multiply-add is contracted; divisions and
@@ -109,16 +109,8 @@ __device__ __forceinline__ int slot_key(
   return (__float_as_int(dist2) & ~0xFF) | l;
 }
 
-// One particle's landmark slots in the [L, P] planes in device memory (the
-// motion kernels), slot l at l * P + p, with the thread's det/validity
-// entries (det(cov) of an occupied slot, -1 beyond the count) in shared
-// memory, `stride` floats apart.  cc aliases cb in production mode, where
-// the covariance stays symmetric and no cc plane exists.
-//
-// apply_measurement() reaches a particle's slots through such a view (the
-// chunked motion kernel); the fs2 kernels and the per-tick motion kernel
-// give it a particle tile staged in shared memory instead (tile.cuh:
-// TileColumn).  A view offers
+// One measurement for one particle, over its slots in the view `s`
+// (tile.cuh: TileColumn), which offers
 //   argmin(wx, wy, cnt)           production: the smallest packed key over
 //                                 the usable slots, kInvalidKey if none;
 //   first_hit(qx, qy, gate2, cnt) parity: the first usable slot under the
@@ -127,81 +119,8 @@ __device__ __forceinline__ int slot_key(
 //   store<PARITY>(l, ..., det)    write slot l and its det(cov);
 //   sync()                        make the stores visible to the particle's
 //                                 next loads.
-struct DeviceColumn {
-  float* __restrict__ mx;
-  float* __restrict__ my;
-  float* __restrict__ ca;
-  float* cb;
-  float* cc;
-  float* __restrict__ cd;
-  float* __restrict__ detp;
-  int stride;
-  size_t P, p;
-  int L;
-
-  __device__ __forceinline__ size_t at(const int l) const {
-    return static_cast<size_t>(l) * P + p;
-  }
-
-  __device__ __forceinline__ int argmin(const float wx, const float wy, int) const {
-    int kmin = kInvalidKey;
-    for (int l = 0; l < L; ++l) {
-      const float dtp = detp[l * stride];
-      if (!(dtp > 0.0f)) continue;
-      const size_t o = at(l);
-      kmin = min(kmin, slot_key(mx[o], my[o], ca[o], cb[o], cc[o], cd[o], 1.0f / dtp,
-                                wx, wy, l));
-    }
-    return kmin;
-  }
-
-  __device__ __forceinline__ int first_hit(const float qx, const float qy,
-                                           const float gate2, int) const {
-    for (int l = 0; l < L; ++l) {
-      const float dtp = detp[l * stride];
-      if (!(dtp > 0.0f)) continue;
-      const size_t o = at(l);
-      const float dx = mx[o] - qx;
-      const float dy = my[o] - qy;
-      const float d2f = dx * (cd[o] * dx - cb[o] * dy) + dy * (-cc[o] * dx + ca[o] * dy);
-      if (d2f < gate2 * dtp) return l;
-    }
-    return L;
-  }
-
-  template <bool PARITY>
-  __device__ __forceinline__ void load(const int l, float& mu_x, float& mu_y, float& a,
-                                       float& b, float& c, float& d) const {
-    const size_t o = at(l);
-    mu_x = mx[o];
-    mu_y = my[o];
-    a = ca[o];
-    b = cb[o];
-    c = PARITY ? cc[o] : b;
-    d = cd[o];
-  }
-
-  template <bool PARITY>
-  __device__ __forceinline__ void store(const int l, const float new_mx, const float new_my,
-                                        const float a, const float b, const float c,
-                                        const float d, const float det) {
-    const size_t o = at(l);
-    mx[o] = new_mx;
-    my[o] = new_my;
-    ca[o] = a;
-    cb[o] = b;
-    if (PARITY) cc[o] = c;
-    cd[o] = d;
-    detp[l * stride] = det;
-  }
-
-  __device__ __forceinline__ void sync() const {}
-};
-
-// One measurement for one particle, over its slots in the view `s` (see
-// DeviceColumn).  WEIGHT adds the measurement log-likelihood to logw; the
-// FastSLAM 2.0 kernels turn it off when the proposal's evidence carries the
-// weight.
+// WEIGHT adds the measurement log-likelihood to logw; the FastSLAM 2.0
+// kernels turn it off when the proposal's evidence carries the weight.
 template <bool PARITY, bool WEIGHT, class Slots>
 __device__ __forceinline__ void apply_measurement(
     Slots& s, const int L,
@@ -301,23 +220,6 @@ __device__ __forceinline__ void apply_measurement(
     cnt += 1;
   }
   s.sync();
-}
-
-// det/validity plane of one particle: det(cov) of occupied slots, -1 beyond
-__device__ __forceinline__ void init_detp(
-    const size_t p, const size_t P, const int L, const int cnt,
-    const float* __restrict__ ca, const float* cb, const float* cc,
-    const float* __restrict__ cd, float* __restrict__ detp, const int stride) {
-  for (int l = 0; l < L; ++l) {
-    const size_t o = static_cast<size_t>(l) * P + p;
-    detp[l * stride] = l < cnt ? ca[o] * cd[o] - cb[o] * cc[o] : -1.0f;
-  }
-}
-
-// Dynamic shared memory of a motion block: detp [L][threads] | z table [M][4] |
-// valid [M]
-inline size_t shared_bytes(int L, int M, int threads) {
-  return (static_cast<size_t>(L) * threads + 5 * static_cast<size_t>(M)) * sizeof(float);
 }
 
 }  // namespace

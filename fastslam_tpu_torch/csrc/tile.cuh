@@ -1,7 +1,7 @@
 // Particle tiles staged in shared memory, for the kernels that keep a tile
 // of particles' landmark slots on chip for a tick or a chunk: the FastSLAM
-// 2.0 pair (fused_fs2.cu, production) and the per-tick motion kernel
-// (fused_update.cu, production and parity).
+// 2.0 pair (fused_fs2.cu, production) and the motion pair (fused_update.cu,
+// production and parity).
 //
 // A block owns T particles with G lanes (threads) each.  It stages the
 // tile's planes in dynamic shared memory, laid out [plane][slot][T], only
@@ -37,8 +37,8 @@ constexpr int kParityPlanes = 7;            // parity: ..., det(cov), cc
 constexpr int kSmemOptInLimit = 232448;     // 227 KB a block may opt into
 constexpr int kStaticSmemBytes = 64;        // the kernels' __shared__ scalars
 
-// One particle's column of the block's tile (a view for apply_measurement,
-// see measurement.cuh: DeviceColumn).  Slot l of plane k sits at
+// One particle's column of the block's tile, the view apply_measurement
+// (measurement.cuh) reaches its slots through.  Slot l of plane k sits at
 // t[k * LT + at(l)]; the scan is split over the particle's G lanes.
 template <bool PARITY>
 struct TileColumn {
@@ -71,9 +71,9 @@ struct TileColumn {
     return kmin;
   }
 
-  // parity: the first usable slot under the gate (d2 < gate^2 * det, as
-  // DeviceColumn::first_hit), L if none; each lane finds the first of its
-  // slots, and the smallest of those is the first of all
+  // parity: the first usable slot under the gate (d2 < gate^2 * det), L if
+  // none; each lane finds the first of its slots, and the smallest of those
+  // is the first of all
   __device__ __forceinline__ int first_hit(const float qx, const float qy, const float gate2,
                                            const int cnt) const {
     int hit = L;

@@ -68,9 +68,10 @@ def test_per_tick_kernel_matches_plain(device, parity):
     assert_fs2_equal(got, want)
 
 
-def test_chunked_kernel_matches_plain(device):
+@pytest.mark.parametrize("parity", [False, True])
+def test_chunked_kernel_matches_plain(device, parity):
     cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, max_measurements=M,
-                         parity_mode=False)
+                         parity_mode=parity)
     state, ms, gen = seeded(cfg, device, 1)
     d = kernels.draw(gen, P, C)
     rotating = (torch.arange(C, device=device) % 3 == 2)[:, None]
@@ -86,11 +87,8 @@ def test_chunked_kernel_matches_plain(device):
     want = cuda_kernels.fused_update_planes_multi_ref(
         state.poses, state.log_weights, *planes(sp)[1:], z, zv, noisy_rot,
         noisy_trans, cfg)
-    for g, w in zip(got, want):
-        if w is None:
-            assert g is None
-        else:
-            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    # -fmad=false, and the kernel's cosf/sinf equal torch.cos/torch.sin
+    assert_fs2_equal(got, want)
 
 
 def test_kernel_wrappers_refuse_bad_inputs(device):
@@ -368,6 +366,70 @@ def test_motion_tick_kernel_equals_plain_at_every_geometry(device, monkeypatch, 
     torch.cuda.synchronize()
     assert_fs2_equal(got, run_motion(cuda_kernels.fused_update_planes_ref, cfg, state,
                                      poses, z, zv))
+
+
+MOTION_C = 6
+
+
+def ragged_motion_chunk(device, l, parity, seed):
+    """The ragged state of :func:`ragged_motion_inputs` and a chunk of
+    MOTION_C ticks: every third tick rotates, the others translate 0.4 m, so
+    the same measurements land elsewhere on each tick (appends that later
+    ticks scan again, maps that fill to L)."""
+    cfg, state, _, z, zv = ragged_motion_inputs(device, l, parity, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d = kernels.draw(gen, MOTION_P, MOTION_C)
+    rotating = (torch.arange(MOTION_C, device=device) % 3 == 2)[:, None]
+    noisy_rot = torch.where(rotating, 0.3 + 0.01 * d.rot, 0.0)
+    noisy_trans = torch.where(rotating, 0.0, 0.4 + 0.05 * d.trans)
+    return (cfg, state, z[None].expand(MOTION_C, -1, -1).contiguous(),
+            zv[None].expand(MOTION_C, -1).contiguous(), noisy_rot, noisy_trans)
+
+
+def run_motion_chunk(fn, cfg, state, z, zv, noisy_rot, noisy_trans):
+    s = state.clone()
+    return fn(s.poses, s.log_weights, *planes(s)[1:], z, zv, noisy_rot, noisy_trans, cfg)
+
+
+@pytest.mark.parametrize("parity", [False, True])
+@pytest.mark.parametrize("l", [16, 64, 256])
+def test_motion_chunked_kernel_equals_plain_on_ragged_mixed_tiles(device, l, parity):
+    """The chunked motion kernel's tile, staged once for the chunk, bit for
+    bit: a ragged last tile, tiles of mixed counts, slots appended on one
+    tick and scanned on the next from shared memory, maps filling to L."""
+    args = ragged_motion_chunk(device, l, parity, l + parity)
+    state = args[1]
+    tile = cuda_kernels.motion_launch_geometry(l, MOTION_M, parity)[0]
+    assert int(state.lm_count[:tile].min()) < int(state.lm_count[:tile].max())
+    got = run_motion_chunk(cuda_kernels.fused_update_planes_multi, *args)
+    torch.cuda.synchronize()
+    want = run_motion_chunk(cuda_kernels.fused_update_planes_multi_ref, *args)
+    assert_fs2_equal(got, want)
+    before, after = state.lm_count, want[-1]
+    assert bool(((before < l) & (after == l)).any())       # a map filled to L
+    assert bool((want[3][-1] != state.log_weights).any())  # weighted
+
+
+def test_motion_chunked_kernel_equals_plain_with_tiles_below_32(device):
+    """Parity at L = 512: seven planes fit a tile of 16 particles."""
+    args = ragged_motion_chunk(device, 512, True, 5)
+    assert cuda_kernels.motion_launch_geometry(512, MOTION_M, True)[0] < 32
+    got = run_motion_chunk(cuda_kernels.fused_update_planes_multi, *args)
+    torch.cuda.synchronize()
+    assert_fs2_equal(got, run_motion_chunk(cuda_kernels.fused_update_planes_multi_ref, *args))
+
+
+@pytest.mark.parametrize("geometry", [(16, 8), (32, 2), (32, 8), (64, 4), (8, 4), (16, 16)])
+@pytest.mark.parametrize("parity", [False, True])
+def test_motion_chunked_kernel_equals_plain_at_every_geometry(device, monkeypatch, parity,
+                                                              geometry):
+    """The chunk's results do not depend on the tile or the lanes."""
+    args = ragged_motion_chunk(device, 64, parity, 7)
+    monkeypatch.setattr(cuda_kernels, "MOTION_TILE", geometry[0])
+    monkeypatch.setattr(cuda_kernels, "MOTION_LANES", geometry[1])
+    got = run_motion_chunk(cuda_kernels.fused_update_planes_multi, *args)
+    torch.cuda.synchronize()
+    assert_fs2_equal(got, run_motion_chunk(cuda_kernels.fused_update_planes_multi_ref, *args))
 
 
 def fused_icp_inputs(device, b, n, mt, seed):
