@@ -70,11 +70,20 @@ Phases, one line each (or more):
     (blended odometry, floors, dial) and a noise-free motion + ICP replay
     must agree with the CPU path;
 12. the online main path: ``run_driver(ReplayDriver(log))`` at P=100,000,
-    L=64, fs2 + ICP + adaptive floors, 300 ticks; 300 per-tick fs2 launches,
-    no chunked one, one fused ICP launch per tick with a previous scan (299)
+    L=64, fs2 + ICP + adaptive floors, 300 ticks, twice.  First the split
+    path (``fuse_online_tick=False``): 300 per-tick fs2 launches, no
+    chunked one, one fused ICP launch per tick with a previous scan (299)
     and no search launch, ATE under 0.05 m, a second run bit for bit, and
     the wall time per tick with its host-clock split (ICP refinement,
-    frontend + step) as ``run_driver`` records it;
+    frontend + step) as ``run_driver`` records it.  Then the production
+    path, the fused tick: the first tick eager, then one replay of the
+    captured CUDA graph per tick (299), 300 fs2 and 300 fused ICP launches
+    (replays counted), ATE under 0.05 m, a second run bit for bit, and the
+    same 300 estimates as the fused tick run eagerly on the card (no
+    graph); ms per tick of each, with the card's name and power limit; the
+    graph's device time per replay and its top kernels, and the cost of the
+    resample decided on the device and of the copy back into the static
+    state;
 13. the ring halo exchange kernel against its plain version: S in {1, 2, 4,
     8} shards of P=100,000 particles at L=64 (blocks of 389 floats per
     particle) and a ragged case (12,501 particles per shard at S=8); equal
@@ -103,9 +112,9 @@ Phases, one line each (or more):
     achieved GB/s, shared-memory bytes/s and FMA TFLOP/s beside their bounds
     and the SM clock sampled in the phase; and a short run of both probe
     commands as subprocesses, whose JSON lines must parse;
-18. the online loop of phase 12 again with every hook on (a snapshot every
-    10 ticks, a metrics JSONL, a checkpoint at tick 150, health): the same
-    300 estimates bit for bit, a parseable snapshot of at most 500 particles
+18. the fused online loop of phase 12 again with every hook on (a snapshot
+    every 10 ticks, a metrics JSONL, a checkpoint at tick 150, health): the
+    same 300 estimates bit for bit, a parseable snapshot of at most 500 particles
     and at least one landmark, 300 tick records, the checkpoint back at
     iteration 150 with full shapes and finite arrays, no
     ``nan_or_inf_state``; ms per tick with and without hooks and the
@@ -113,7 +122,15 @@ Phases, one line each (or more):
 19. the reference API: ``api.FastSLAM2`` at P=100,000, L=64, production, 10
     ticks of ``bench.py``'s measurement set (finite poses, 10 launches of the
     per-tick update kernel), and ``api.ICP`` on a pair of the drive equal to
-    ``proposal/icp.icp`` on the same pair.
+    ``proposal/icp.icp`` on the same pair;
+20. corner tracking and the JdeRobot traces on the fused online loop:
+    ``track_corners=True`` with fs2 + ICP + adaptive floors at P=100,000,
+    L=64, 300 ticks through the captured graph (ATE under 0.05 m, 299
+    replays, the same launches as phase 12's fused run), equal bit for bit
+    to its eager run on the card; then both committed traces
+    (``data/jderobot/*.jsonl`` through ``load_hal_trace`` and
+    ``ReplayDriver``) on the fused loop at P=100,000, each ATE under 0.06 m,
+    with ms per tick.
 
 Any failure raises.  The line before the last is a JSON summary of the
 kernels (launches of each main path's first run and their sum; the bound
@@ -176,6 +193,10 @@ ONLINE_TICK = 150    # the online batch of phases 9-10: this tick's two matches
 # call; the online loop makes one per tick with a previous scan
 ADAPTIVE_LAUNCHES = {"fused_fs2_planes_multi": 37, "fused_fs2_planes": 4, "icp_point_to_line": 1}
 ONLINE_LAUNCHES = {"fused_fs2_planes": 300, "icp_point_to_line": 299}
+# the fused tick: one 2-pair ICP launch in every tick (the first tick's is
+# masked by has_prev), replays counted
+ONLINE_FUSED_LAUNCHES = {"fused_fs2_planes": 300, "icp_point_to_line": 300}
+TRACE_ATE = 0.06     # the JdeRobot traces on the fused loop (EVAL.md:72, ~2x)
 SIN_COS_VALUES = 100_000_000
 FMA_RTOL = 1e-6      # fma_chain vs its plain version: rare double roundings
 # shared memory streams 32 banks x 4 bytes per clock on each SM
@@ -1417,29 +1438,160 @@ def phase11(log, fs2_ate):
     return launches
 
 
-def phase12(log):
-    import numpy as np
-
+def online_run(log, cfg, **kw):
+    """``run_driver`` over ``log`` on the card, counters zeroed just before."""
     from fastslam_tpu_torch.app.runner import run_driver
     from fastslam_tpu_torch.drivers.replay import ReplayDriver
 
-    cfg = adaptive_config()
-    online = lambda: run_driver(ReplayDriver(log), cfg, rng=0, device=DEVICE)
-    hist, launches, wall = zeroed_run(online)
-    check_icp_launches("online loop", launches, ONLINE_LAUNCHES)
-    est, ate = check_estimates("online loop", hist, 0.05)
+    return zeroed_run(lambda: run_driver(ReplayDriver(log), cfg, rng=0, device=DEVICE, **kw))
+
+
+def check_fused(tag, log, hist, launches, ate_bar):
+    """One graph replay per tick after the eager first one, the fused
+    path's launches, finite estimates under ``ate_bar``."""
+    check_icp_launches(tag, launches, ONLINE_FUSED_LAUNCHES)
+    if hist.graph_replays != len(log) - 1 or "icp_refine" in hist.stage_seconds:
+        raise AssertionError(f"{tag}: {hist.graph_replays} graph replays, stages "
+                             f"{sorted(hist.stage_seconds)}")
+    return check_estimates(tag, hist, ate_bar)
+
+
+def same_estimates(tag, got, want):
+    import numpy as np
+
+    got = np.asarray(got.est_poses) if hasattr(got, "est_poses") else got
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{tag}: estimates differ by {np.abs(got - want).max():.3e}")
+
+
+def phase12(log, card):
+    """The online loop: the split path, then the fused tick (graph)."""
+    cfg = adaptive_config(fuse_online_tick=False)
+    hist, launches, wall = online_run(log, cfg)
+    check_icp_launches("split online loop", launches, ONLINE_LAUNCHES)
+    est, ate = check_estimates("split online loop", hist, 0.05)
     per = {k: v / len(log) * 1e3 for k, v in hist.stage_seconds.items()}
-    phase(12, f"run_driver(ReplayDriver) fs2+ICP+adaptive 300 ticks P={P} L={L} on "
-              f"cuda: ATE {ate:.4f} m, wall {wall:.2f} s = {wall / 300 * 1e3:.2f} ms per "
-              f"tick (host clock: ICP refine {per['icp_refine']:.3f}, frontend + step "
-              f"{per['tick']:.3f}), final floors "
+    phase(12, f"split path: run_driver(ReplayDriver) fs2+ICP+adaptive 300 ticks P={P} "
+              f"L={L} on {card}: ATE {ate:.4f} m, wall {wall:.2f} s = "
+              f"{wall / 300 * 1e3:.2f} ms per tick (host clock: ICP refine "
+              f"{per['icp_refine']:.3f}, frontend + step {per['tick']:.3f}), final floors "
               f"{tuple(round(f, 6) for f in hist.final_floors)}, launches {launches}")
-    again = np.asarray(online().est_poses)
-    if not np.array_equal(again, est):
-        raise AssertionError(f"online loop: a second run differs by "
-                             f"{np.abs(again - est).max():.3e}")
-    phase(12, "a second run gives the same 300 estimates bit for bit")
-    return launches, est, wall
+    same_estimates("split online loop, second run", online_run(log, cfg)[0], est)
+    phase(12, "split path: a second run gives the same 300 estimates bit for bit")
+
+    cfg = adaptive_config()
+    fused, fused_launches, fused_wall = online_run(log, cfg)
+    fused_est, fused_ate = check_fused("fused online loop", log, fused, fused_launches, 0.05)
+    phase(12, f"fused tick (production): the same loop on {card}: ATE {fused_ate:.4f} m, "
+              f"wall {fused_wall:.2f} s = {fused_wall / 300 * 1e3:.2f} ms per tick "
+              f"({wall / fused_wall:.2f}x the split path), {fused.graph_replays} graph "
+              f"replays, final floors {tuple(round(f, 6) for f in fused.final_floors)}, "
+              f"launches {fused_launches} (replays counted)")
+    again, _, again_wall = online_run(log, cfg)
+    same_estimates("fused online loop, second run", again, fused_est)
+    eager, eager_launches, eager_wall = online_run(log, cfg, graph=False)
+    same_estimates("fused online loop, eager on the card", eager, fused_est)
+    if eager.graph_replays or eager_launches != fused_launches:
+        raise AssertionError(f"eager fused tick: {eager.graph_replays} replays, launches "
+                             f"{eager_launches}")
+    phase(12, f"fused tick: a second run ({again_wall / 300 * 1e3:.2f} ms per tick) and the "
+              f"eager fused tick on the card ({eager_wall / 300 * 1e3:.2f} ms per tick, no "
+              f"graph) give the same 300 estimates bit for bit; max |fused - split| "
+              f"{float(abs(fused_est - est).max()):.4f}")
+    fused_breakdown(log, card)
+    return launches, fused_launches, fused_est, fused_wall
+
+
+def fused_breakdown(log, card):
+    """Where the fused tick's time goes: the device time of one replay of
+    its graph (CUDA events), the graph's kernels by device time under
+    ``torch.profiler``, and at the bench geometry the cost of the resample
+    decided on the device (staircase and identity gather) beside the host
+    branch (no resample due), and of the copy back into the static state."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastslam_tpu_torch.app.runner import SLAMRunner
+    from fastslam_tpu_torch.core import kernels
+    from fastslam_tpu_torch.drivers.replay import ReplayDriver
+
+    cfg = adaptive_config()
+    runner = SLAMRunner(cfg, device=DEVICE)
+    drv = ReplayDriver(log)
+    prev = (0.0, 0.0)
+    for _ in range(40):
+        scan = drv.get_laser()
+        pts, valid = scan.to_points()
+        v, w = prev
+        prev = drv.commanded_velocity()
+        rot, tr = runner.odometry(v, w, scan.timestamp)
+        runner.tick_fused(pts, valid, rot, tr, v)
+        drv.step()
+    graph = runner._fused.graph
+    replay_ms = time_ms(graph.replay, 50)
+    reps = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    events = [(e.key, getattr(e, "device_time_total", 0.0) / reps / 1e3, e.count / reps)
+              for e in prof.key_averages()]
+    busy = sum(t for _, t, _ in events)
+    top = sorted(events, key=lambda e: -e[1])[:6]
+    state = runner.state.clone()
+    state = state.replace(log_weights=torch.full_like(state.log_weights, -math.log(P)))
+    u0 = torch.full((), 0.3 / P, device=DEVICE)
+    host_ms = time_ms(lambda: kernels._normalize_and_resample(state, u0, cfg), 20)
+    device_ms = time_ms(
+        lambda: kernels._normalize_and_resample(state, u0, cfg, on_device=True), 20)
+    target = state.clone()
+    pairs = [(getattr(target, k), v) for k, v in state.__dict__.items() if v is not None]
+    copy_ms = time_ms(lambda: [d.copy_(x) for d, x in pairs], 20)
+    state_mb = sum(v.numel() * v.element_size() for _, v in pairs) / 1e6
+    phase(12, f"fused tick's graph on {card}: {replay_ms:.4f} ms of device time per replay "
+              f"(CUDA events), {sum(c for _, _, c in events):.0f} kernels and copies per replay "
+              f"busy {busy:.4f} ms under torch.profiler; top: "
+              + "; ".join(f"{k[:48]} {t:.4f} ms x{c:.0f}" for k, t, c in top))
+    phase(12, f"resample decided on the device at P={P} L={L} (no resample due): "
+              f"{device_ms:.4f} ms against the host branch's {host_ms:.4f} ms "
+              f"(+{device_ms - host_ms:.4f} ms: the staircase and the identity gather of "
+              f"{state_mb:.1f} MB); the copy back into the static state {copy_ms:.4f} ms")
+    return {"replay_ms": replay_ms, "busy_ms": busy, "gather_ms": device_ms - host_ms,
+            "copy_ms": copy_ms}
+
+
+def phase20(log, card):
+    """Corner tracking and the JdeRobot traces on the fused online loop."""
+    import glob
+    import os
+
+    from fastslam_tpu_torch.io.jderobot_trace import load_hal_trace
+
+    cfg = adaptive_config(track_corners=True)
+    hist, launches, wall = online_run(log, cfg)
+    _, ate = check_fused("tracked fused loop", log, hist, launches, 0.05)
+    eager, _, eager_wall = online_run(log, cfg, graph=False)
+    same_estimates("tracked fused loop, eager on the card", eager, hist.est_poses)
+    phase(20, f"track_corners on the fused tick, fs2+ICP+adaptive 300 ticks P={P} L={L} on "
+              f"{card}: ATE {ate:.4f} m, {wall / 300 * 1e3:.2f} ms per tick, "
+              f"{hist.graph_replays} graph replays, equal bit for bit to its eager run "
+              f"({eager_wall / 300 * 1e3:.2f} ms per tick); launches {launches}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    traces = sorted(glob.glob(os.path.join(root, "data", "jderobot", "*.jsonl")))
+    if len(traces) != 2:
+        raise AssertionError(f"expected the two committed JdeRobot traces, found {traces}")
+    total = {}
+    for path in traces:
+        trace = load_hal_trace(path)
+        th, tl, tw = online_run(trace, adaptive_config())
+        _, tate = check_fused(f"trace {os.path.basename(path)}", trace, th, tl, TRACE_ATE)
+        total = {k: total.get(k, 0) + v for k, v in tl.items()}
+        phase(20, f"JdeRobot trace {os.path.basename(path)} ({len(trace)} ticks) on the fused "
+                  f"loop, fs2+ICP+adaptive P={P} L={L} on {card}: ATE {tate:.4f} m, "
+                  f"{tw / len(trace) * 1e3:.2f} ms per tick, launches {tl}")
+    return launches, total
 
 
 def ring_blocks(s, p_local, gen):
@@ -1710,7 +1862,7 @@ def phase17(gen, card):
 
 
 def phase18(log, online_est, online_wall):
-    """The online loop of phase 12 with every production hook on."""
+    """The fused online loop of phase 12 with every production hook on."""
     import os
     import shutil
 
@@ -1732,7 +1884,7 @@ def phase18(log, online_est, online_wall):
             ReplayDriver(log), adaptive_config(), rng=0, device=DEVICE,
             serialize_path=snap, serialize_every=10, metrics_path=metrics,
             checkpoint_path=ckpt, checkpoint_every=150, health=True))
-        check_icp_launches("hooked online loop", launches, ONLINE_LAUNCHES)
+        check_fused("hooked online loop", log, hist, launches, 0.05)
         est = np.asarray(hist.est_poses)
         if not np.array_equal(est, online_est):
             raise AssertionError(f"hooked online loop: estimates differ from phase 12's "
@@ -1759,8 +1911,8 @@ def phase18(log, online_est, online_wall):
         shutil.rmtree(out_dir, ignore_errors=True)
     spent = hist.stage_seconds
     issues = sorted({i for r in health for i in r["issues"]})
-    phase(18, f"run_driver with every hook on, 300 ticks P={P} L={L}: the same 300 "
-              f"estimates as phase 12 bit for bit; wall {wall:.2f} s = "
+    phase(18, f"run_driver with every hook on, fused tick, 300 ticks P={P} L={L}: the same "
+              f"300 estimates as phase 12's fused run bit for bit; wall {wall:.2f} s = "
               f"{wall / 300 * 1e3:.2f} ms per tick (phase 12 without hooks "
               f"{online_wall / 300 * 1e3:.2f} ms); hooks' host seconds: "
               + ", ".join(f"{k} {spent[k]:.3f}" for k in ("health", "metrics", "serialize",
@@ -1879,7 +2031,7 @@ def main() -> int:
     phase10_sin_cos(gen)
     errs[ICP], errs[FUSED_ICP] = phase10(batch)
     paths["adaptive_replay"] = phase11(log, fs2_ate)
-    paths["online"], online_est, online_wall = phase12(log)
+    paths["online"], paths["online_fused"], online_est, online_wall = phase12(log, card)
     errs[RING] = phase13(gen)
     phase14()
     paths["sharded"] = phase15()
@@ -1891,6 +2043,7 @@ def main() -> int:
     bounds.update(probe_bounds)
     paths["hooked_online"] = phase18(log, online_est, online_wall)
     paths["api"] = phase19(log)
+    paths["tracked_online"], paths["jderobot"] = phase20(log, card)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -5,12 +5,17 @@
   python -m fastslam_tpu_torch run --log runs/log.npz --chunk 16 \\
       --particles 100000 --landmarks 64 --production
   python -m fastslam_tpu_torch sim --ticks 500 --particles 256
+  python -m fastslam_tpu_torch run --log runs/log.fslog --plot runs/traj.png
+  python -m fastslam_tpu_torch viz --path workspace/shared/fast_slam.json
 
 ``run`` without ``--chunk`` and ``sim`` drive the online per-tick loop
-(``run_driver``), in parity mode unless ``--production`` is given; ``run
+(``run_driver``), in parity mode unless ``--production`` is given (then
+through the fused tick, on the card one CUDA graph replay per tick); ``run
 --chunk N`` is the batch replay, always in production mode.  Both execute on
 ``--device cuda`` unless ``--device cpu`` is given, and stop with an error
-when there is no GPU rather than fall back to the CPU.
+when there is no GPU rather than fall back to the CPU.  ``run --plot PNG``
+also writes the trajectory plot; ``viz`` watches the viewer's JSON snapshot
+(both need matplotlib).
 """
 
 from __future__ import annotations
@@ -66,7 +71,23 @@ def cmd_run(args) -> int:
                           device=args.device)
     metrics = hist.metrics(skip=args.skip_ticks)
     metrics["device"] = args.device
+    if args.plot:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        from fastslam_tpu_torch.viz.map_plot import plot_trajectory
+
+        fig, _ = plot_trajectory(hist)
+        fig.savefig(args.plot, dpi=120)
+        metrics["plot"] = args.plot
     print(json.dumps(metrics))
+    return 0
+
+
+def cmd_viz(args) -> int:
+    from fastslam_tpu_torch.viz.map_plot import watch
+
+    watch(args.path, interval=args.interval)
     return 0
 
 
@@ -109,6 +130,7 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("run", help="run SLAM on a replay log, print metrics")
     p.add_argument("--log", required=True)
+    p.add_argument("--plot", default=None, help="write the trajectory plot PNG")
     p.add_argument("--chunk", type=int, default=0,
                    help="batch replay: ticks per chunked kernel call "
                         "(production math; 0 = the per-tick online loop)")
@@ -122,6 +144,11 @@ def main(argv=None) -> int:
     p.add_argument("--range-noise", type=float, default=0.0)
     _add_filter_args(p)
     p.set_defaults(fn=cmd_sim)
+
+    p = sub.add_parser("viz", help="watch the shared JSON snapshot (viewer)")
+    p.add_argument("--path", default="workspace/shared/fast_slam.json")
+    p.add_argument("--interval", type=float, default=0.5)
+    p.set_defaults(fn=cmd_viz)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -5,12 +5,15 @@ Counterpart of ``fastslam_tpu/app/runner.py``:
 * :class:`SLAMRunner` and :func:`run_driver`: the online loop, one tick at
   a time against any :class:`~fastslam_tpu_torch.drivers.base.Driver` —
   odometry from the previous tick's commands, the optional ICP refinement
-  of that odometry with adaptive proposal floors, the frontend, one filter
-  step (production or parity mode), the dead-reckoning warmup gate and the
-  per-tick evaluation against ground truth, and the production hooks
-  (viewer snapshots, a JSONL metrics log, checkpoints, health monitoring
-  with recovery).  This is the JAX runner's split path; the port has no
-  fused one-dispatch tick (``config.py``).
+  of that odometry with adaptive proposal floors, the frontend (with
+  optional corner tracking), one filter step, the dead-reckoning warmup
+  gate and the per-tick evaluation against ground truth, and the production
+  hooks (viewer snapshots, a JSONL metrics log, checkpoints, health
+  monitoring with recovery).  In production mode with ``fuse_online_tick``
+  every tick is the fused tick (:meth:`SLAMRunner.tick_fused`): on CUDA one
+  replay of a captured CUDA graph, the card's counterpart of JAX's
+  one-dispatch tick; parity mode, or ``fuse_online_tick=False``, runs the
+  split path (:meth:`SLAMRunner.icp_refine`, then :meth:`SLAMRunner.tick`).
 * :func:`replay_chunked`: a recorded log has no feedback from the estimate
   to the commands, so the frontend runs over every scan first, the ICP
   matches of the whole log run as one batch (:func:`icp_floor_stage`), then
@@ -31,13 +34,18 @@ import numpy as np
 import torch
 
 from fastslam_tpu_torch.config import FastSLAMConfig
-from fastslam_tpu_torch.core import kernels
+from fastslam_tpu_torch.core import cuda_kernels, kernels
 from fastslam_tpu_torch.core.state import (
     FilterState, Measurements, from_planes, init_planes_state, to_planes,
 )
 from fastslam_tpu_torch.eval.metrics import TickEvaluation, evaluate_tick, trajectory_metrics
 from fastslam_tpu_torch.frontend.global_map import cluster_known_landmarks
-from fastslam_tpu_torch.frontend.pipeline import scan_to_measurements
+from fastslam_tpu_torch.frontend.pipeline import (
+    extract_corners, measurements_from_corners, scan_to_measurements,
+)
+from fastslam_tpu_torch.frontend.tracking import (
+    TrackState, init_tracks, stable_corners, update_tracks,
+)
 from fastslam_tpu_torch.io.checkpoint import save_checkpoint
 from fastslam_tpu_torch.io.serializer import serialize_tick
 from fastslam_tpu_torch.proposal import adaptive
@@ -62,20 +70,19 @@ class RunHistory:
     # per-tick floor trajectories (batched replay only)
     floor_traj: tuple | None = None
     # host-clock seconds of the online loop's stages, summed over its ticks:
-    # "icp_refine" and "tick" (frontend + filter step), and each production
-    # hook that is on ("health", "metrics", "serialize", "checkpoint"); each
-    # ends in a device-to-host copy or a file write, so no synchronization is
+    # on the split path "icp_refine" and "tick" (frontend + filter step), on
+    # the fused path "tick" (the whole fused tick), and each production hook
+    # that is on ("health", "metrics", "serialize", "checkpoint"); each ends
+    # in a device-to-host copy or a file write, so no synchronization is
     # added to time them
     stage_seconds: dict = field(default_factory=dict)
+    # replays of the fused tick's captured CUDA graph (0 off the card)
+    graph_replays: int = 0
 
     def metrics(self, skip: int = 0) -> dict:
         return trajectory_metrics(
             np.asarray(self.gt_poses[skip:]), np.asarray(self.est_poses[skip:])
         )
-
-
-def _not_ported(what: str, where: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {where})")
 
 
 def _check_adaptive(config: FastSLAMConfig) -> None:
@@ -97,13 +104,15 @@ def _f32(x, device) -> torch.Tensor:
 
 class SLAMRunner:
     """Owns the filter state on ``device``, its random generator and the
-    dead-reckoned robot pose of the online loop."""
+    dead-reckoned robot pose of the online loop.
+
+    In production mode with ``fuse_online_tick`` the online loop runs
+    :meth:`tick_fused`; on CUDA its work is one captured CUDA graph, replayed
+    once per tick.  ``graph=False`` runs the same fused tick eagerly on the
+    card: the reference the graph is held against, bit for bit."""
 
     def __init__(self, config: FastSLAMConfig, rng: int = 0, *,
-                 device: torch.device | str = "cuda"):
-        if config.track_corners:
-            raise _not_ported("track_corners (frontend/tracking.py)",
-                              "frontend extras")
+                 device: torch.device | str = "cuda", graph: bool = True):
         _check_adaptive(config)
         self.config = config
         self.device = torch.device(device)
@@ -114,6 +123,9 @@ class SLAMRunner:
         self.iteration = 0
         self._prev_timestamp: Optional[float] = None
         self._last_num_measurements = 0
+        self._tracks: Optional[TrackState] = (
+            init_tracks(config.track_capacity, self.device)
+            if config.track_corners else None)
 
         # host-side state of the online odometry-error estimator
         # (proposal/adaptive.py, shared with the batched replay)
@@ -123,6 +135,7 @@ class SLAMRunner:
         self._blend_xy = 0.0
         self._blend_th = 0.0
         self._bias_th = 0.0
+        self._lat_gate = 1.0
         self._dial = 0.0 if self._adaptive_floors else 1.0
         self._prev_cmd = (0.0, 0.0)
         self._prev_se2 = (0.0, 0.0, 0.0)
@@ -130,6 +143,10 @@ class SLAMRunner:
             self._floor_est = adaptive.OnlineFloorEstimator(config)
         self._prev_scan = None
         self._prev2_scan = None
+        # production: the fused tick (parity mode keeps the split path)
+        self._fused: Optional[_FusedTick] = None
+        if not config.parity_mode and config.fuse_online_tick:
+            self._fused = _FusedTick(self, graph=graph and self.device.type == "cuda")
 
     # ------------------------------------------------------------ odometry
     def odometry(self, v: float, w: float, timestamp: float) -> tuple:
@@ -278,12 +295,17 @@ class SLAMRunner:
     # ------------------------------------------------------------- one tick
     def tick(self, points: np.ndarray, valid: np.ndarray, rotation: float,
              translation: float) -> np.ndarray:
-        """Run perception and one filter step; returns the pose estimate the
-        application should adopt (respecting the warmup gate)."""
+        """Run perception (with ``track_corners``: corner extraction, the
+        track update with this tick's odometry, the confirmed corners) and
+        one filter step; returns the pose estimate the application should
+        adopt (respecting the warmup gate)."""
         dev = self.device
-        ms = scan_to_measurements(
-            torch.from_numpy(np.asarray(points, np.float32)).to(dev),
-            torch.from_numpy(np.asarray(valid, bool)).to(dev), self.config)
+        pts = torch.from_numpy(np.asarray(points, np.float32)).to(dev)
+        vld = torch.from_numpy(np.asarray(valid, bool)).to(dev)
+        if self._tracks is not None:
+            self._tracks, ms = self._tracked_measurements(pts, vld, rotation, translation)
+        else:
+            ms = scan_to_measurements(pts, vld, self.config)
         draws = kernels.draw(self._generator, self.config.num_particles, fs2=self._fs2)
         extra = {}
         if self._adaptive_floors:
@@ -305,14 +327,292 @@ class SLAMRunner:
             self.robot = out[:3].astype(float).copy()
         return self.robot.copy()
 
+    def _tracked_measurements(self, pts, vld, rotation, translation):
+        """The tracked frontend: extract corners, update the track table
+        with the tick's odometry, measure the confirmed corners.  Returns
+        ``(tracks, measurements)``."""
+        cfg = self.config
+        corners, cvalid = extract_corners(pts, vld, cfg)
+        tracks = update_tracks(self._tracks, corners, cvalid, rotation, translation,
+                               gate=cfg.track_gate, ema=cfg.track_ema,
+                               max_misses=cfg.track_max_misses)
+        pos, _ids, ok = stable_corners(tracks, min_hits=cfg.track_min_hits)
+        return tracks, measurements_from_corners(pos, ok, cfg)
+
+    def tick_fused(self, points: np.ndarray, valid: np.ndarray, rotation: float,
+                   translation: float, v: float) -> np.ndarray:
+        """The production tick, JAX's one-dispatch tick: the warm-started
+        ICP refinement (with adaptive floors, the direct two-step match too),
+        the frontend or corner tracking, and the filter step, in one piece
+        of device work with one ``out[14]`` read back (:class:`_FusedTick`).
+
+        The host's floor estimator reads this tick type's floors, blends,
+        bias and gate before the tick and takes the tick's residuals after
+        it.  The warmup dead-reckons with the refined odometry ``out[3:5]``.
+        """
+        k = int(v != 0)
+        if self._adaptive_floors:
+            # residuals through tick t-1, read at this tick's own type
+            fxy, fth, a_xy, a_th, dial, diag = self._floor_est.read(k)
+            self._floor_xy, self._floor_th = fxy, fth
+            self._blend_xy = a_xy
+            self._blend_th = a_th
+            self._bias_th = diag["b_th"]
+            self._lat_gate = diag["lat_gate"]
+            self._dial = dial
+        rot_prev, trans_prev = self._prev_cmd
+        self._prev_cmd = (float(rotation), float(translation))
+        has_prev, has_prev2 = self._fused.has_prev()
+        out = self._fused(points, valid, (
+            rotation, translation, rot_prev, trans_prev, float(v != 0),
+            float(has_prev), float(has_prev2), self._floor_xy, self._floor_th,
+            self._blend_xy, self._blend_th, self._bias_th, self._lat_gate, self._dial))
+        self._last_num_measurements = int(out[5])
+        self._last_out = out
+        if self._adaptive_floors:
+            # this tick's residuals; the next tick reads at its own type
+            ang, tx, ty = float(out[8]), float(out[9]), float(out[10])
+            kw = {}
+            if has_prev:
+                sr, al, la = adaptive.se2_residuals(
+                    np.array([ang], np.float32), np.array([[tx, ty]], np.float32),
+                    np.array([0.0, rotation], np.float32),
+                    np.array([0.0, translation], np.float32))
+                kw.update(sr_th=float(sr[1]), sr_al=float(al[1]), lat=float(la[1]))
+            if has_prev2:
+                pa, ptx, pty = self._prev_se2
+                d_ang, d_t2 = adaptive.consistency_discrepancy(
+                    np.array([pa, ang], np.float32),
+                    np.array([[ptx, pty], [tx, ty]], np.float32),
+                    np.array([out[11]], np.float32),
+                    np.array([[out[12], out[13]]], np.float32))
+                kw.update(d_ang=float(d_ang[0]), d_t2=float(d_t2[0]))
+            self._prev_se2 = (ang, tx, ty)
+            self._floor_est.push(k, **kw)
+
+        if self.iteration < self.config.warmup_iterations:
+            rot_u, trans_u = float(out[3]), float(out[4])
+            self.robot[2] = (self.robot[2] + rot_u + np.pi) % (2 * np.pi) - np.pi
+            self.robot[0] += trans_u * np.cos(self.robot[2])
+            self.robot[1] += trans_u * np.sin(self.robot[2])
+            self.iteration += 1
+        else:
+            self.robot = out[:3].astype(float).copy()
+        return self.robot.copy()
+
     def state_blocks(self) -> FilterState:
         """The filter state in the ``[P, L, k]`` blocks layout, for the health
         monitor, the global map and checkpoints (a transposed copy)."""
         return from_planes(self.state)
 
     def set_state_blocks(self, state: FilterState) -> None:
-        """Install a blocks-layout state (after a health recovery)."""
-        self.state = to_planes(state, self.config)
+        """Install a blocks-layout state (after a health recovery).  The
+        fused tick's state is a set of static buffers that its CUDA graph
+        reads and writes, so there the new state is copied into them."""
+        planes = to_planes(state, self.config)
+        if self._fused is None:
+            self.state = planes
+            return
+        for name, dst in self.state.__dict__.items():
+            if dst is not None:
+                dst.copy_(getattr(planes, name))
+
+    def set_generator(self, generator: torch.Generator) -> None:
+        """Continue the filter's draws from ``generator``'s stream (after a
+        recovery from a checkpoint): its state is copied into the runner's
+        own generator."""
+        self._generator.set_state(generator.get_state())
+
+
+class _FusedTick:
+    """The fused online tick of a :class:`SLAMRunner` (JAX's
+    ``_build_fused_tick``, ``fastslam_tpu/app/runner.py``).
+
+    Everything the tick reads or writes lives in static tensors: the filter
+    state, the track table, the scans t-1 and t-2, the tick's draws and one
+    input row holding the scan t, its validity and the fourteen host scalars
+    (odometry, previous command, ``v_active``, ``has_prev``, ``has_prev2``,
+    floors, blends, bias, lateral gate, dial).  :meth:`_body` reads them and
+    writes the new state, tracks and scans back into them, and returns
+    ``out[14] = [est_x, est_y, est_yaw, rot_used, trans_used, n_meas,
+    floor_xy, floor_th, ang, t_x, t_y, dir_ang, dir_tx, dir_ty]``.
+
+    On CUDA the first tick runs the body eagerly (it builds the kernels and
+    initializes every lazy resource), then the body is captured once into a
+    :class:`torch.cuda.CUDAGraph`; every later tick is one replay.  The draws
+    are taken eagerly from the runner's generator before each tick and
+    copied into the static draw tensors, so a replay takes exactly the draws
+    of the eager tick.  Kernel launches are counted per replay: the capture
+    records the wrappers' counts and takes them back (it launches nothing),
+    and each replay adds them.  On the CPU, or with ``graph=False``, the
+    body runs eagerly every tick.  A capture that fails raises; nothing
+    falls back to the eager or the split path.
+    """
+
+    N_SCALARS = 14
+
+    def __init__(self, runner: SLAMRunner, *, graph: bool):
+        self.runner = runner
+        self.config = runner.config
+        self.graph_enabled = graph
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.replays = 0
+        self._tally: dict = {}
+        self._inp = None
+        self._ticks = 0
+        self._icp = self.config.use_icp_proposal
+        self._floors_on = runner._adaptive_floors
+
+    def has_prev(self):
+        """Whether the scans t-1 and t-2 exist at the coming tick."""
+        if not self._icp:
+            return False, False
+        return self._ticks >= 1, self._ticks >= 2
+
+    # ------------------------------------------------------------ buffers
+    def _allocate(self, n: int) -> None:
+        dev = self.runner.device
+        width = 3 * n + self.N_SCALARS
+        self._n = n
+        self._inp = torch.zeros(width, dtype=torch.float32, device=dev)
+        self._host = torch.zeros(width, dtype=torch.float32,
+                                 pin_memory=dev.type == "cuda")
+        self._prev = (torch.zeros((n, 2), dtype=torch.float32, device=dev),
+                      torch.zeros(n, dtype=torch.bool, device=dev))
+        self._prev2 = (torch.zeros((n, 2), dtype=torch.float32, device=dev),
+                       torch.zeros(n, dtype=torch.bool, device=dev))
+        p = self.config.num_particles
+        normal = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+        fs2 = self.runner._fs2
+        self._draws = kernels.Draws(rot=None if fs2 else normal(p),
+                                    trans=None if fs2 else normal(p), u0=normal(),
+                                    noise=normal(p, 3) if fs2 else None)
+
+    def _fill(self, points, valid, scalars) -> None:
+        n = self._n
+        host = self._host.numpy()
+        host[:2 * n] = np.asarray(points, np.float32).reshape(-1)
+        host[2 * n:3 * n] = np.asarray(valid, bool)
+        host[3 * n:] = np.asarray(scalars, np.float64).astype(np.float32)
+        self._inp.copy_(self._host, non_blocking=True)
+        draws = kernels.draw(self.runner._generator, self.config.num_particles,
+                             fs2=self.runner._fs2)
+        for dst, src in zip(self._draws, draws):
+            if dst is not None:
+                dst.copy_(src)
+
+    # --------------------------------------------------------------- body
+    def _body(self) -> torch.Tensor:
+        """One fused tick on the static tensors; returns ``out[14]``."""
+        cfg, runner, n = self.config, self.runner, self._n
+        dev = runner.device
+        pts = self._inp[:2 * n].view(n, 2)
+        vld = self._inp[2 * n:3 * n] > 0.5
+        (rotation, translation, rot_prev, trans_prev, v_active, has_prev, has_prev2,
+         fxy, fth, a_xy, a_th, b_th, lat_gate, dial) = self._inp[3 * n:].unbind()
+        v_active, has_prev, has_prev2 = v_active > 0.5, has_prev > 0.5, has_prev2 > 0.5
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        ang, t_comp = zero, torch.zeros(2, dtype=torch.float32, device=dev)
+        dir_ang, dir_t = zero, torch.zeros(2, dtype=torch.float32, device=dev)
+        if self._icp:
+            # a missing scan falls back to the current one, masked by has_prev
+            prev_pts = torch.where(has_prev, self._prev[0], pts)
+            prev_vld = torch.where(has_prev, self._prev[1], vld)
+            # warm start with the command odometry, rotated elementwise
+            pre = rotate_points(prev_pts, -rotation) - torch.stack([translation, zero])
+            srcs, src_vld = [pre], [prev_vld]
+            if self._floors_on:
+                # the direct two-step match scan(t-2) -> scan(t) calibrates
+                # the matcher's own noise for the host estimator
+                prev2_pts = torch.where(has_prev2, self._prev2[0], pts)
+                prev2_vld = torch.where(has_prev2, self._prev2[1], vld)
+                warm2_ang = -(rot_prev + rotation)
+                warm2_t = (rotate_points(torch.stack([-trans_prev, zero]), -rotation)
+                           + torch.stack([-translation, zero]))
+                srcs.append(rotate_points(prev2_pts, warm2_ang) + warm2_t)
+                src_vld.append(prev2_vld)
+            # both matches in one batched call: one fused ICP launch
+            k = len(srcs)
+            res = icp_point_to_line(torch.stack(srcs), pts.expand(k, n, 2),
+                                    torch.stack(src_vld), vld.expand(k, n), cfg)
+            ang = res.theta[0] - rotation
+            t_comp = (rotate_points(torch.stack([-translation, zero]), res.theta[0])
+                      + res.translation[0])
+            # signed along-track estimate; the rotation match debiased by b_th
+            icp_trans = torch.where(v_active, -t_comp[0], 0.0)
+            icp_rot = torch.where(v_active, 0.0, -ang - b_th)
+            if self._floors_on:
+                dir_ang = warm2_ang + res.theta[1]
+                dir_t = rotate_points(warm2_t, res.theta[1]) + res.translation[1]
+                # match-failure gate: |lateral residual| > lat_gate fails the
+                # match (the port's one rule on both paths; JAX's fused tick
+                # fails on >=, its split path on >)
+                match_ok = (torch.abs(t_comp[1]) <= lat_gate).to(torch.float32)
+                a_r = a_th * match_ok
+                a_t = a_xy * match_ok
+            else:
+                a_r = a_t = torch.full((), cfg.icp_blend, dtype=torch.float32, device=dev)
+            rotation = torch.where(has_prev, (1 - a_r) * rotation + a_r * icp_rot, rotation)
+            translation = torch.where(has_prev, (1 - a_t) * translation + a_t * icp_trans,
+                                      translation)
+            self._prev2[0].copy_(self._prev[0])
+            self._prev2[1].copy_(self._prev[1])
+            self._prev[0].copy_(pts)
+            self._prev[1].copy_(vld)
+        if runner._tracks is not None:
+            tracks, ms = runner._tracked_measurements(pts, vld, rotation, translation)
+            for dst, src in zip(runner._tracks, tracks):
+                dst.copy_(src)
+        else:
+            ms = scan_to_measurements(pts, vld, cfg)
+        extra = {}
+        if self._floors_on:
+            extra = dict(proposal_floors=(fxy, fth), evidence_scale=dial)
+        state, est = kernels.fastslam_step_planes(
+            runner.state, rotation, translation, ms, cfg, self._draws, on_device=True,
+            **extra)
+        for name, dst in runner.state.__dict__.items():
+            if dst is not None:
+                dst.copy_(getattr(state, name))
+        n_meas = ms.valid.sum().to(torch.float32)
+        return torch.cat([est, torch.stack([rotation, translation, n_meas, fxy, fth, ang,
+                                            t_comp[0], t_comp[1], dir_ang, dir_t[0],
+                                            dir_t[1]])])
+
+    # --------------------------------------------------------------- tick
+    def __call__(self, points, valid, scalars) -> np.ndarray:
+        n = np.asarray(points).shape[0]
+        if self._inp is None:
+            self._allocate(n)
+        elif n != self._n:
+            raise ValueError(f"the fused tick's buffers hold scans of {self._n} beams, "
+                             f"got {n}")
+        self._fill(points, valid, scalars)
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+            for name, count in self._tally.items():
+                cuda_kernels.LAUNCHES[name] += count
+            out = self._out
+        else:
+            out = self._body()
+            if self.graph_enabled:
+                self._capture()
+        self._ticks += 1
+        return out.cpu().numpy()
+
+    def _capture(self) -> None:
+        """Capture the body into a CUDA graph (after the eager first tick)."""
+        before = dict(cuda_kernels.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.runner.device), torch.cuda.graph(graph):
+            self._out = self._body()
+        # the capture launched nothing: take its counts back for the replays
+        self._tally = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before
+                       if cuda_kernels.LAUNCHES[k] != before[k]}
+        for name, count in self._tally.items():
+            cuda_kernels.LAUNCHES[name] -= count
+        self.graph = graph
 
 
 def run_driver(
@@ -322,6 +622,7 @@ def run_driver(
     rng: int = 0,
     *,
     device: torch.device | str = "cuda",
+    graph: bool = True,
     serialize_path: Optional[str] = None,
     serialize_every: int = 1,
     metrics_path: Optional[str] = None,
@@ -348,8 +649,14 @@ def run_driver(
     ``checkpoint_every`` ticks from tick ``checkpoint_every`` on.  The hooks
     read the state and draw nothing, so they leave the estimates as they
     are; with every hook off the loop adds no synchronization.
+
+    In production mode with ``fuse_online_tick`` (the default) every tick is
+    :meth:`SLAMRunner.tick_fused`, on CUDA one replay of its captured graph;
+    ``graph=False`` runs that tick eagerly on the card instead (the
+    reference the graph is held against).  Otherwise each tick is the split
+    path.
     """
-    runner = SLAMRunner(config, rng, device=device)
+    runner = SLAMRunner(config, rng, device=device, graph=graph)
     history = RunHistory()
     odo_rng = np.random.default_rng(odometry_noise_seed)
     monitor = HealthMonitor(config) if health else None
@@ -365,7 +672,8 @@ def run_driver(
     ticks = 0
     prev_cmd = (0.0, 0.0)
     spent = history.stage_seconds
-    spent.update(icp_refine=0.0, tick=0.0)
+    fused = runner._fused is not None
+    spent.update({"tick": 0.0} if fused else {"icp_refine": 0.0, "tick": 0.0})
     hook_time = PhaseTimer()   # each hook ends in a host copy or a file write
     while running and ticks < max_ticks:
         scan = driver.get_laser()
@@ -392,13 +700,17 @@ def run_driver(
             if translation != 0.0:
                 translation += odo_rng.normal(0.0, odometry_noise[1])
         t0 = time.perf_counter()
-        if config.use_icp_proposal:
-            rotation, translation = runner.icp_refine(points, valid, rotation,
-                                                      translation, v)
-        t1 = time.perf_counter()
-        est = runner.tick(points, valid, rotation, translation)
-        spent["icp_refine"] += t1 - t0
-        spent["tick"] += time.perf_counter() - t1
+        if fused:
+            est = runner.tick_fused(points, valid, rotation, translation, v)
+            spent["tick"] += time.perf_counter() - t0
+        else:
+            if config.use_icp_proposal:
+                rotation, translation = runner.icp_refine(points, valid, rotation,
+                                                          translation, v)
+            t1 = time.perf_counter()
+            est = runner.tick(points, valid, rotation, translation)
+            spent["icp_refine"] += t1 - t0
+            spent["tick"] += time.perf_counter() - t1
 
         gp = driver.get_pose()
         dx, dy = gp.x - off[0], gp.y - off[1]
@@ -421,7 +733,7 @@ def run_driver(
                             runner.state, est, checkpoint_path=checkpoint_path)
                         runner.set_state_blocks(state)
                         if generator is not None:   # the checkpoint's stream
-                            runner._generator = generator
+                            runner.set_generator(generator)
         if metrics:
             with hook_time.phase("metrics"):
                 metrics.write("tick", tick=ticks, distance=ev.distance,
@@ -444,6 +756,8 @@ def run_driver(
     if metrics:
         metrics.close()
     spent.update(hook_time.totals)
+    if fused:
+        history.graph_replays = runner._fused.replays
     if runner._adaptive_floors:
         history.final_floors = (runner._floor_xy, runner._floor_th)
         r0 = runner._floor_est.read(0)

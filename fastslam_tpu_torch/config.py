@@ -8,11 +8,11 @@ the tensors decides which path runs, and the caller picks the layout by the
 step it calls: the planes steps, or the blocks ``fastslam_step``) and the
 retired ``fs2_reuse_association`` lever.
 
-``fuse_online_tick`` is kept for the carry-over but read by nothing: the
-JAX runner fuses the whole online tick into one dispatch for a remote TPU,
-a dispatch fusion of the same semantics; the port's online tick is always
-the split path (``app/runner.py:SLAMRunner``: ICP refinement, frontend,
-filter step).
+``fuse_online_tick`` (with ``parity_mode=False``) selects the fused online
+tick, as in the JAX runner: ICP refinement, frontend or corner tracking and
+the filter step as one piece of device work with one readback, on the card
+one replay of a captured CUDA graph per tick (``app/runner.py:
+SLAMRunner.tick_fused``); otherwise the online loop runs the split path.
 
 The capacity fields (``max_landmarks``, ``max_measurements``,
 ``max_hough_lines`` ...) turn every ragged structure of the algorithm into a
@@ -114,7 +114,7 @@ class FastSLAMConfig:
     fs2_evidence_weights: bool = False
 
     # ---- motion / app loop ----
-    fuse_online_tick: bool = True         # read by nothing (see above)
+    fuse_online_tick: bool = True         # production: the fused tick (see above)
     velocity_fudge: float = 0.6           # the simulator absorbs 40% of v
     warmup_iterations: int = 150          # dead-reckoning warmup ticks
     linear_velocity: float = 0.3          # drive policy commands

@@ -1030,8 +1030,12 @@ def _check_noise(noise, shape, device):
 
 
 def _per_tick(value, c: Optional[int], device) -> torch.Tensor:
-    """A scalar, or a ``[C]`` vector, as float32 of shape ``()`` or ``[C]``."""
-    t = torch.as_tensor(value, dtype=torch.float32, device=device)
+    """A scalar, or a ``[C]`` vector, as float32 of shape ``()`` or ``[C]``.
+    A host number is filled on the device (no host-to-device copy, which a
+    CUDA graph capture would refuse)."""
+    t = (torch.as_tensor(value, dtype=torch.float32, device=device)
+         if not isinstance(value, (int, float))
+         else torch.full((), value, dtype=torch.float32, device=device))
     return t if c is None else t.broadcast_to((c,))
 
 

@@ -130,8 +130,7 @@ def effective_particles(log_weights: torch.Tensor,
     n = log_weights.shape[0]
     w = torch.exp(log_weights)
     s = torch.sum(w * w)
-    return torch.where(s < 1.0 / n, torch.tensor(float(n), dtype=w.dtype, device=w.device),
-                       1.0 / torch.clamp_min(s, 1e-300))
+    return torch.where(s < 1.0 / n, float(n), 1.0 / torch.clamp_min(s, 1e-300))
 
 
 def systematic_resample_indices(weights: torch.Tensor,
@@ -247,22 +246,39 @@ def resample_state(state: FilterState, idx: torch.Tensor,
 
 def estimate_pose(state) -> torch.Tensor:
     """The pose of the highest-weight particle (the first of equal maxima,
-    as ``jnp.argmax``)."""
-    return state.poses[torch.argmax(state.log_weights)]
+    as ``jnp.argmax``), gathered on the device."""
+    return state.poses.index_select(0, torch.argmax(state.log_weights).reshape(1))[0]
 
 
 def _normalize_and_resample(state, u0: torch.Tensor, config: FastSLAMConfig,
-                            resample=resample_planes_state):
+                            resample=resample_planes_state, *, on_device: bool = False):
     """Normalize, Neff, and the conditional systematic resample of either
-    layout (``resample`` gathers the state by ancestor index)."""
+    layout (``resample`` gathers the state by ancestor index).
+
+    The host reads the decision ``neff < threshold * P`` and gathers only
+    when it holds.  ``on_device=True`` keeps the decision on the device, as
+    JAX's ``lax.cond`` does, so a CUDA graph can capture the step: the
+    staircase indices are always computed from the same ``u0``, replaced by
+    ``arange(P)`` when no resample is due, and the state is always gathered;
+    the weights are the resampled ones or the normalized ones by the same
+    decision.  An identity gather copies every value, so both forms leave
+    the same state bit for bit; the device form costs one read and one write
+    of the state per tick."""
     log_w = normalize_log_weights(state.log_weights, config)
     state = state.replace(log_weights=log_w)
     p = state.num_particles
     neff = effective_particles(log_w, config)
-    if bool(neff < config.resample_threshold_frac * p):
-        idx = systematic_resample_indices(torch.exp(log_w), u0)
-        state = resample(state, idx, config)
-    return state
+    do_resample = neff < config.resample_threshold_frac * p
+    if not on_device:
+        if bool(do_resample):
+            idx = systematic_resample_indices(torch.exp(log_w), u0)
+            state = resample(state, idx, config)
+        return state
+    idx = systematic_resample_indices(torch.exp(log_w), u0)
+    idx = torch.where(do_resample, idx, torch.arange(p, device=idx.device))
+    gathered = resample(state, idx, config)
+    return gathered.replace(
+        log_weights=torch.where(do_resample, gathered.log_weights, log_w))
 
 
 def fs2_prior_scalars(rotation, translation, config: FastSLAMConfig,
@@ -328,18 +344,22 @@ def planes_update(state: PlanesState, rotation, translation,
 def fastslam_step_planes(state: PlanesState, rotation, translation,
                          measurements: Measurements, config: FastSLAMConfig,
                          draws: Draws, *, proposal_floors=None,
-                         evidence_scale=None) -> Tuple[PlanesState, torch.Tensor]:
+                         evidence_scale=None, on_device: bool = False
+                         ) -> Tuple[PlanesState, torch.Tensor]:
     """One filter tick: :func:`planes_update` (the kernels run on CUDA,
     their plain versions on the CPU), then normalize, Neff, conditional
     systematic resample, argmax pose estimate.  ``proposal_floors`` and
     ``evidence_scale`` (the mode dial) feed the fs2 proposal only.
+    ``on_device=True`` decides the resample on the device
+    (:func:`_normalize_and_resample`): the step then reads nothing on the
+    host, and leaves the same state bit for bit.
 
     The planes, weights and counts of ``state`` are updated in place; the
     returned state is the one to keep.  Returns ``(new_state, pose [3])``.
     """
     state = planes_update(state, rotation, translation, measurements, config, draws,
                           proposal_floors=proposal_floors, evidence_scale=evidence_scale)
-    state = _normalize_and_resample(state, draws.u0, config)
+    state = _normalize_and_resample(state, draws.u0, config, on_device=on_device)
     # argmax returns the first of equal maxima, as jnp.argmax does
     return state, estimate_pose(state)
 

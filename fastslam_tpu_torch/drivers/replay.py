@@ -19,13 +19,6 @@ import numpy as np
 from fastslam_tpu_torch.drivers.base import BumperState, Driver, LaserScan, Pose
 
 
-def _refuse_fslog(path: str) -> None:
-    if path.endswith(".fslog"):
-        raise NotImplementedError(
-            "the native .fslog codec is not ported yet (ROADMAP.md: IO); "
-            "use an .npz log")
-
-
 @dataclass
 class LaserLog:
     """Columnar tick log."""
@@ -44,8 +37,13 @@ class LaserLog:
         return self.scans.shape[0]
 
     def save(self, path: str) -> None:
-        """Save as .npz (the native .fslog codec is not ported yet)."""
-        _refuse_fslog(path)
+        """Save as .fslog (the FSLG1 codec, ``io/native_log.py``) or .npz,
+        by extension."""
+        if path.endswith(".fslog"):
+            from fastslam_tpu_torch.io.native_log import write_log
+
+            write_log(path, self)
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         np.savez_compressed(
             path,
@@ -62,7 +60,10 @@ class LaserLog:
 
     @staticmethod
     def load(path: str) -> "LaserLog":
-        _refuse_fslog(path)
+        if path.endswith(".fslog"):
+            from fastslam_tpu_torch.io.native_log import read_log
+
+            return read_log(path)
         z = np.load(path)
         return LaserLog(
             scans=z["scans"],

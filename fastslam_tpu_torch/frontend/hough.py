@@ -18,6 +18,7 @@ Counterpart of ``fastslam_tpu/frontend/hough.py``:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -31,6 +32,13 @@ class HoughLines(NamedTuple):
     rho: torch.Tensor    # [K] pixel-space rho
     theta: torch.Tensor  # [K] radians
     valid: torch.Tensor  # [K] bool
+
+
+@functools.lru_cache(maxsize=None)
+def _disc_offsets_on(radius: int, device: torch.device) -> torch.Tensor:
+    """:func:`_disc_offsets` on ``device``, copied there once: a copy from
+    the host inside a CUDA graph capture would fail."""
+    return torch.from_numpy(_disc_offsets(radius)).to(device)
 
 
 def _disc_offsets(radius: int) -> np.ndarray:
@@ -81,7 +89,7 @@ def hough_accumulator(points: torch.Tensor, valid: torch.Tensor,
 
     # disc expansion + per-pixel dedup: invalid entries get the max sentinel
     # so they sort to the end; one vote per unique pixel
-    offs = torch.from_numpy(_disc_offsets(config.hough_point_radius)).to(device)
+    offs = _disc_offsets_on(config.hough_point_radius, torch.device(device))
     d = offs.shape[0]
     ex = (px[:, None] + offs[None, :, 0]).reshape(-1)        # [N*D]
     ey = (py[:, None] + offs[None, :, 1]).reshape(-1)

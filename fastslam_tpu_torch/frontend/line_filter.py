@@ -8,6 +8,8 @@ reflect-padded 1-D correlation, kept in float32 (the caller turns TF32 off).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -23,6 +25,13 @@ def _gaussian_kernel(sigma: float, truncate: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_on(sigma: float, truncate: float, device: torch.device) -> torch.Tensor:
+    """The Gaussian kernel on ``device``, copied there once (a copy from the
+    host inside a CUDA graph capture would fail)."""
+    return torch.from_numpy(_gaussian_kernel(sigma, truncate)).to(device)
+
+
 def line_filter(points: torch.Tensor, config: FastSLAMConfig) -> torch.Tensor:
     """Smooth ``[N, 2]`` scan points along the beam axis (reflect boundary)."""
     kernel = _gaussian_kernel(config.line_filter_sigma, config.line_filter_truncate)
@@ -31,7 +40,7 @@ def line_filter(points: torch.Tensor, config: FastSLAMConfig) -> torch.Tensor:
     r = kernel.shape[0] // 2
     # reflect padding as scipy mode='reflect' ((d c b a | a b c d | d c b a))
     padded = torch.cat([points[:r].flip(0), points, points[-r:].flip(0)], dim=0)
-    k = torch.from_numpy(kernel).to(points.device)
+    k = _kernel_on(config.line_filter_sigma, config.line_filter_truncate, points.device)
     n = points.shape[0]
     idx = (torch.arange(n, device=points.device)[:, None]
            + torch.arange(kernel.shape[0], device=points.device)[None, :])

@@ -611,12 +611,64 @@ def test_icp_and_adaptive_paths_run_through_the_kernels(device):
     np.testing.assert_array_equal(a, b)
     assert runs[0].metrics()["ate_rmse_m"] < 0.25
     before = dict(cuda_kernels.LAUNCHES)
-    hist = run_driver(ReplayDriver(small_log(24)), cfg, device=device)
+    hist = run_driver(ReplayDriver(small_log(24)), cfg.replace(fuse_online_tick=False),
+                      device=device)
     delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
     assert delta["fused_fs2_planes"] == 24 and delta["fused_fs2_planes_multi"] == 0
-    # one fused ICP launch per tick with a previous scan
+    # the split path: one fused ICP launch per tick with a previous scan
     assert delta["icp_point_to_line"] == 23 and delta["icp_correspondences"] == 0
     assert np.isfinite(np.asarray(hist.est_poses)).all()
+    before = dict(cuda_kernels.LAUNCHES)
+    hist = run_driver(ReplayDriver(small_log(24)), cfg, device=device)
+    delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    # the fused tick: one 2-pair ICP launch every tick, 23 graph replays
+    assert delta["fused_fs2_planes"] == 24 and delta["icp_point_to_line"] == 24
+    assert delta["icp_correspondences"] == 0 and hist.graph_replays == 23
+    assert np.isfinite(np.asarray(hist.est_poses)).all()
+
+
+@pytest.mark.parametrize("from_checkpoint", [True, False])
+def test_fused_graph_equals_eager_across_a_forced_health_recovery(device, monkeypatch,
+                                                                  tmp_path, from_checkpoint):
+    """A health check that reports a non-finite state at tick 14 forces a
+    recovery (from the tick-10 checkpoint and its generator, or a
+    re-initialization) in the middle of a run through the captured graph:
+    the recovery writes into the graph's static state, and the run equals
+    the fused tick run eagerly on the card bit for bit."""
+    import dataclasses
+
+    from fastslam_tpu_torch.app.runner import run_driver
+    from fastslam_tpu_torch.drivers.replay import ReplayDriver
+    from fastslam_tpu_torch.utils import health
+
+    cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, parity_mode=False,
+                         proposal_mode="fastslam2", use_icp_proposal=True,
+                         adaptive_proposal_floors=True, icp_blend=0.0, warmup_iterations=8)
+    real = health.HealthMonitor.check
+
+    def forced(self, state, pose):
+        rep = real(self, state, pose)
+        self.checks = getattr(self, "checks", 0) + 1
+        if self.checks == 15:
+            rep = dataclasses.replace(rep, ok=False, issues=rep.issues + ["nan_or_inf_state"])
+        return rep
+
+    monkeypatch.setattr(health.HealthMonitor, "check", forced)
+    log = small_log(24)
+
+    def run(graph, **kw):
+        ck = str(tmp_path / f"ck_{graph}.npz") if from_checkpoint else None
+        return run_driver(ReplayDriver(log), cfg, rng=0, device=device, graph=graph,
+                          checkpoint_path=ck, checkpoint_every=10, **kw)
+
+    captured, eager = run(True, health=True), run(False, health=True)
+    assert captured.graph_replays == 23 and eager.graph_replays == 0
+    got = np.asarray(captured.est_poses)
+    np.testing.assert_array_equal(got, np.asarray(eager.est_poses))
+    assert np.isfinite(got).all()
+    untouched = np.asarray(run(True).est_poses)          # no health check, no recovery
+    np.testing.assert_array_equal(untouched[:15], got[:15])
+    assert not np.array_equal(untouched[15:], got[15:])
 
 
 @pytest.mark.parametrize("s,p_local,d", [(1, 2000, 389), (2, 1500, 389), (3, 1001, 389),
@@ -757,3 +809,32 @@ def test_fastslam2_facade_launches_the_per_tick_kernel(device):
     assert delta == {k: 3 if k == "fused_update_planes" else 0 for k in before}
     assert np.isfinite(pose).all() and bool((slam.state.lm_count == 2).all())
     assert len(slam.particles[0].landmarks) == 2
+
+
+@pytest.mark.parametrize("kw", [
+    {},                                                             # motion, no ICP
+    {"proposal_mode": "fastslam2"},                                 # fs2, config floors
+    {"use_icp_proposal": True, "icp_blend": 0.5},                   # one ICP pair per tick
+    {"proposal_mode": "fastslam2", "track_corners": True},
+])
+def test_fused_graph_equals_eager_in_every_mode(device, kw):
+    """The fused tick's graph, captured for each production mode the
+    online loop runs, replays once per tick after the eager first tick and
+    equals the same tick run eagerly on the card bit for bit."""
+    from fastslam_tpu_torch.app.runner import run_driver
+    from fastslam_tpu_torch.drivers.replay import ReplayDriver
+
+    cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, parity_mode=False,
+                         warmup_iterations=8, **kw)
+    log = small_log(24)
+    before = dict(cuda_kernels.LAUNCHES)
+    captured = run_driver(ReplayDriver(log), cfg, rng=0, device=device)
+    delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    eager = run_driver(ReplayDriver(log), cfg, rng=0, device=device, graph=False)
+    assert captured.graph_replays == 23 and eager.graph_replays == 0
+    step = "fused_fs2_planes" if kernels.uses_fs2(cfg) else "fused_update_planes"
+    assert delta[step] == 24
+    assert delta["icp_point_to_line"] == (24 if cfg.use_icp_proposal else 0)
+    got = np.asarray(captured.est_poses)
+    np.testing.assert_array_equal(got, np.asarray(eager.est_poses))
+    assert np.isfinite(got).all() and max(captured.num_measurements) > 0

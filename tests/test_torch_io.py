@@ -461,9 +461,10 @@ def test_hooks_change_no_estimate(tmp_path, drive):
                         checkpoint_path=str(tmp_path / "ck.npz"), checkpoint_every=15,
                         health=True)
     assert np.array_equal(np.asarray(hooked.est_poses), np.asarray(plain.est_poses))
-    assert set(hooked.stage_seconds) == {"icp_refine", "tick", "health", "metrics",
-                                         "serialize", "checkpoint"}
-    assert set(plain.stage_seconds) == {"icp_refine", "tick"}
+    # a production config runs the fused tick: one "tick" stage per tick
+    assert set(hooked.stage_seconds) == {"tick", "health", "metrics", "serialize",
+                                         "checkpoint"}
+    assert set(plain.stage_seconds) == {"tick"}
     state, meta = checkpoint.load_checkpoint(str(tmp_path / "ck.npz"), "cpu")
     assert meta["iteration"] == 30 and state.lm_mean.shape == (32, 16, 2)
 

@@ -153,7 +153,9 @@ def test_online_loop_records_its_stage_times():
 
 def test_cli_online_run_and_sim_are_run_driver(tmp_path, capsys):
     """``run`` without ``--chunk`` is ``run_driver(ReplayDriver(log))`` and
-    ``sim`` is ``run_driver(SimWorld)``, parity mode unless ``--production``."""
+    ``sim`` is ``run_driver(SimWorld)``, parity mode unless ``--production``
+    (then with the config's default ``fuse_online_tick=True``: the fused
+    tick)."""
     log_path = str(tmp_path / "log.npz")
     record_log(SimWorld(seed=3), num_ticks=16).save(log_path)
     from fastslam_tpu_torch.drivers.replay import LaserLog
@@ -167,7 +169,8 @@ def test_cli_online_run_and_sim_are_run_driver(tmp_path, capsys):
          lambda: run_driver(ReplayDriver(LaserLog.load(log_path)),
                             cfg.replace(parity_mode=True), rng=2, device="cpu")),
         (["sim", "--ticks", "10", "--production"],
-         lambda: run_driver(SimWorld(seed=2), cfg, max_ticks=10, rng=2, device="cpu")),
+         lambda: run_driver(SimWorld(seed=2), cfg.replace(fuse_online_tick=True),
+                            max_ticks=10, rng=2, device="cpu")),
     ):
         capsys.readouterr()
         assert cli.main(argv + small) == 0

@@ -203,8 +203,9 @@ def test_adaptive_replay_tracks_like_jax(drive):
 
 
 def test_replay_refuses_paths_not_ported(drive, tmp_path):
-    """Parity replay and corner tracking are refused; the online loop's
-    hooks, each alone, and fs2, ICP and adaptive floors run."""
+    """Parity replay is refused; the online loop's hooks, each alone, its
+    corner tracking (split and fused), and the replay's fs2, ICP and
+    adaptive floors run."""
     cfg = config_from_jax_fields(dataclasses.asdict(jax_config()))
     with pytest.raises(ValueError, match="production"):
         replay_chunked(drive, cfg.replace(parity_mode=True), device="cpu")
@@ -218,8 +219,12 @@ def test_replay_refuses_paths_not_ported(drive, tmp_path):
         hist = run_driver(ReplayDriver(short), cfg, device="cpu", **kw)
         assert len(hist.est_poses) == 6, kw
     assert all((tmp_path / f).is_file() for f in ("x.json", "m.jsonl", "c.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_driver(ReplayDriver(drive), cfg.replace(track_corners=True), device="cpu")
+    for fuse in (False, True):
+        tracked = cfg.replace(track_corners=True, fuse_online_tick=fuse)
+        hist = run_driver(ReplayDriver(short), tracked, device="cpu")
+        est = np.asarray(hist.est_poses)
+        assert est.shape == (6, 3) and np.isfinite(est).all(), fuse
+        assert set(hist.stage_seconds) == ({"tick"} if fuse else {"icp_refine", "tick"})
     for kw in ({"proposal_mode": "fastslam2"},
                {"use_icp_proposal": True},
                {"proposal_mode": "fastslam2", "use_icp_proposal": True,
@@ -230,7 +235,8 @@ def test_replay_refuses_paths_not_ported(drive, tmp_path):
 
 def test_cli_records_and_runs_on_the_cpu(tmp_path, capsys):
     """``record``, then ``run --chunk``, ``run`` (the online loop) and
-    ``sim`` on an explicit CPU device."""
+    ``sim`` on an explicit CPU device, and ``run`` on the log saved as
+    ``.fslog``."""
     log_path = str(tmp_path / "log.npz")
     assert cli.main(["record", "--ticks", "20", "--out", log_path, "--seed", "3"]) == 0
     assert len(LaserLog.load(log_path)) == 20
@@ -241,5 +247,11 @@ def test_cli_records_and_runs_on_the_cpu(tmp_path, capsys):
         assert cli.main(argv + small) == 0, argv
         out = capsys.readouterr().out
         assert '"ate_rmse_m"' in out and '"device": "cpu"' in out, argv
-    with pytest.raises(NotImplementedError, match="fslog"):
-        LaserLog.load(str(tmp_path / "log.fslog"))
+    # an .fslog log (the FSLG1 codec) loads back equal and runs as well
+    fslog = str(tmp_path / "log.fslog")
+    LaserLog.load(log_path).save(fslog)
+    back, want = LaserLog.load(fslog), LaserLog.load(log_path)
+    np.testing.assert_allclose(back.scans, want.scans, rtol=1e-6)   # stored as float32
+    np.testing.assert_array_equal(back.gt_poses, want.gt_poses)
+    assert cli.main(["run", "--log", fslog] + small) == 0
+    assert '"ate_rmse_m"' in capsys.readouterr().out
