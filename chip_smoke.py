@@ -130,13 +130,33 @@ Phases, one line each (or more):
     to its eager run on the card; then both committed traces
     (``data/jderobot/*.jsonl`` through ``load_hal_trace`` and
     ``ReplayDriver``) on the fused loop at P=100,000, each ATE under 0.06 m,
-    with ms per tick.
+    with ms per tick;
+21. the pose-graph backend on the card.  (a) BASELINE config #5 at full
+    scale: the serpentine survey world (``backend/survey.py``) with 1.1M
+    landmarks and K=1024 keyframes, consensus alignment, the graph (2^21
+    landmark slots, 2^23 factor slots) with the host seconds of each stage;
+    landmarks within 3 % of 1.1M and no factor dropped; ``optimize_sharded``,
+    4 GN iterations at damping 1e-3, on a map mesh of 4 shards of the card
+    (exactly 4 segment_sum launches per shard per iteration, error down,
+    gauge-aligned keyframe error under 0.6x), again bit for bit, then on 1
+    shard (poses within 1e-4, landmarks within 1e-3 of S=4); ms per
+    iteration by CUDA events split into the Schur reduction, its cross term,
+    the Cholesky solve, back-substitution and the host error, and the peak
+    device memory; the dry run's backend block on 4 shards; the segment-sum
+    kernel against its plain version bit for bit at each of shard 0's four
+    sums of an iteration, timed beside its plain version, ``index_add_`` and
+    its bound.  (b) ``smooth_trajectory`` on phase 12's fused estimates,
+    greedy and tracked, each twice bit for bit, keyframe error before and
+    after.  (c) ``merge_sessions`` on two maps of 4,096 landmarks against
+    the same call on the CPU: the transform within 1e-4, the same matches
+    and masks, the ICP search's launches.
 
-Any failure raises.  The line before the last is a JSON summary of the
-kernels (launches of each main path's first run and their sum; the bound
-from this run's shapes and the landmark slots the timed calls read and
-write, against the H100's published peaks); the
-last line is ``{"ok": true, "device": {...}}``.
+Any failure raises.  The card's name and power limit come on the line
+before the kernels' JSON summary (launches of each main path's first run
+and their sum; the bound from this run's shapes and the landmark slots the
+timed calls read and write, against the H100's published peaks), which is
+the line before the last; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -172,6 +192,10 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "hbm_copy": ("fastslam_tpu_torch/csrc/probes.cu", "scripts/bench_hbm_floor.py:47"),
     "mul_add": ("fastslam_tpu_torch/csrc/probes.cu", "scripts/bench_vpu_roofline.py:112"),
     "fma_chain": ("fastslam_tpu_torch/csrc/probes.cu", "scripts/bench_vpu_roofline.py:115"),
+    # port-only: no Pallas kernel; it replaces XLA's float scatter-adds of
+    # fastslam_tpu/backend/pose_graph.py:315-419
+    "segment_sum": ("fastslam_tpu_torch/csrc/segment_sum.cu",
+                    "fastslam_tpu/backend/pose_graph.py:315"),
 }
 MOTION = ("fused_update_planes", "fused_update_planes_multi")
 FS2 = ("fused_fs2_planes", "fused_fs2_planes_multi")
@@ -259,7 +283,7 @@ def ptxas_summary(report: str):
             plain = next((k for k in ("icp_nn_kernel", "icp_point_to_line_kernel",
                                       "icp_sin_cos_kernel", "ring_halo_kernel",
                                       "hbm_copy_kernel", "mul_add_kernel",
-                                      "fma_chain_kernel")
+                                      "fma_chain_kernel", "segment_sum_kernel")
                           if k in entry.group(1)), entry.group(1))
             name = (f"{m.group(1)}<{','.join(re.findall('Lb([01])E', m.group(2)))}>"
                     if m else plain)
@@ -1594,6 +1618,282 @@ def phase20(log, card):
     return launches, total
 
 
+# phase 21: BASELINE config #5 (tests/test_backend_scale.py:157-215) at full
+# scale, cut to 4 GN iterations as its evidence run (eval_results/backend_1m.json)
+BACKEND_LANDMARKS, BACKEND_KEYFRAMES, BACKEND_ITERS, BACKEND_DAMPING = 1_100_000, 1024, 4, 1e-3
+BACKEND_GRAPH = dict(association_gate=0.5, max_landmarks=1 << 21, max_factors=1 << 23,
+                     obs_sigma_r=0.01, obs_sigma_b=1e-3, odo_sigma_xy=0.05,
+                     odo_sigma_theta=0.001)
+BACKEND_SUMS = 4        # segment sums per shard per GN iteration (sparse path)
+MERGE_LANDMARKS = 4096  # per map in (c): the ICP search tiles its targets
+MERGE_TOL = 1e-4       # (c) card vs CPU
+
+
+def backend_graph():
+    """The 1.1M-landmark survey graph, and the host seconds of each stage."""
+    from fastslam_tpu_torch.backend.alignment import consensus_align
+    from fastslam_tpu_torch.backend.builder import build_pose_graph
+    from fastslam_tpu_torch.backend.survey import survey_world_chunked
+
+    t0 = time.perf_counter()
+    noisy, obs, gt, _ = survey_world_chunked(BACKEND_LANDMARKS, k=BACKEND_KEYFRAMES,
+                                             sigma_xy=0.05, seed=1)
+    t1 = time.perf_counter()
+    aligned, info = consensus_align(noisy, obs, sigma_xy=0.05, sigma_theta=0.001)
+    t2 = time.perf_counter()
+    g = build_pose_graph(noisy, obs, association_poses=aligned, device=DEVICE,
+                         **BACKEND_GRAPH)
+    t3 = time.perf_counter()
+    return g, gt, info, {"world": t1 - t0, "align": t2 - t1, "build": t3 - t2}
+
+
+def backend_segment_inputs(g, shards):
+    """Shard 0's four segment sums of one sparse GN iteration at this graph's
+    shapes: (name, columns, layout) with seeded values in the layout's
+    columns (by landmark 5, by keyframe 12, by keyframe cell 9, the
+    back-substitution 2)."""
+    import torch
+
+    from fastslam_tpu_torch.backend import distributed
+    from fastslam_tpu_torch.parallel.mesh import make_map_mesh
+
+    gs, _ = distributed.shard_pose_graph(g, shards)
+    pair_a, pair_b, pair_valid = distributed.build_schur_pairs(gs, shards, DEVICE)
+    layout = distributed.schur_layouts(
+        make_map_mesh([DEVICE] * shards), g.poses.shape[0], g.landmarks.shape[0],
+        gs.obs_kf, gs.obs_lm, gs.obs_valid, pair_a, pair_b, pair_valid)[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    f_local, cap = gs.obs_kf.shape[0] // shards, pair_a.shape[0] // shards
+    cols = lambda c, n: torch.randn((c, n), generator=gen, device=DEVICE)
+    return [("by_landmark", cols(5, f_local), layout.by_lm),
+            ("by_keyframe", cols(12, f_local), layout.by_kf),
+            ("cross", cols(9, cap), layout.by_cell),
+            ("backsub", cols(2, f_local), layout.by_lm)]
+
+
+def segment_sum_measure(inputs):
+    """Each of the four sums: kernel against its plain version bit for bit;
+    then per call the kernel's, the plain version's and ``index_add_``'s
+    time (CUDA events) and the bound: the values and order entries of the
+    segments' entries and the offsets read once, the sums written once,
+    over 3.35 TB/s (one add per value: the bytes bound it)."""
+    import torch
+
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    rows = {}
+    for name, values, layout in inputs:
+        got = cuda_kernels.segment_sum(values, layout)
+        want = cuda_kernels.segment_sum_ref(values, layout)
+        if not torch.equal(got, want):
+            raise AssertionError(f"segment_sum {name}: {int((got != want).sum())} of "
+                                 f"{want.numel()} sums differ from the plain version")
+        c, s = values.shape[0], layout.num_segments
+        entries = int(layout.offsets[-1])
+        key = torch.full((values.shape[1],), s, dtype=torch.int64, device=DEVICE)
+        key[layout.perm[:entries].long()] = torch.repeat_interleave(
+            torch.arange(s, device=DEVICE), (layout.offsets[1:] - layout.offsets[:-1]).long(),
+            output_size=entries)
+        library = lambda: torch.zeros((c, s + 1), device=DEVICE).index_add_(1, key, values)
+        lib = library()[:, :s]
+        lib_err = float((lib - want).abs().max()) if entries else 0.0
+        nbytes = 4 * (c * entries + entries + s + 1 + c * s)
+        rows[name] = {
+            "ms": time_ms(lambda: cuda_kernels.segment_sum(values, layout), 20),
+            "plain_ms": time_ms(lambda: cuda_kernels.segment_sum_ref(values, layout), 3),
+            "library_ms": time_ms(library, 20),
+            "bound": bound_ms(nbytes, c * entries),
+            "columns": c, "segments": s, "entries": entries, "library_err": lib_err}
+    return rows
+
+
+def gauge_error(gt, poses):
+    import numpy as np
+
+    from fastslam_tpu_torch.eval.metrics import align_se2
+
+    est = np.asarray(poses.cpu() if hasattr(poses, "cpu") else poses)[:, :2]
+    return float(np.linalg.norm(align_se2(gt[:, :2], est) - gt[:, :2], axis=1).mean())
+
+
+def phase21_config5(card):
+    """(a) BASELINE config #5: the 1.1M-landmark graph optimized on map
+    meshes of 4 and 1 shards of the card."""
+    import numpy as np
+    import torch
+
+    from fastslam_tpu_torch.backend import distributed
+    from fastslam_tpu_torch.parallel import dryrun
+    from fastslam_tpu_torch.parallel.mesh import make_map_mesh
+    from fastslam_tpu_torch.utils.profiling import EventMarks
+
+    g, gt, ainfo, host_s = backend_graph()
+    n_lm, n_f = int(g.lm_valid.sum()), int(g.obs_valid.sum())
+    if abs(n_lm - BACKEND_LANDMARKS) > 0.03 * BACKEND_LANDMARKS:
+        raise AssertionError(f"config #5: {n_lm} landmarks built for {BACKEND_LANDMARKS}")
+    gs, dropped = distributed.shard_pose_graph(g, SHARDS)
+    if dropped:
+        raise AssertionError(f"config #5: {dropped} factors dropped at {SHARDS} shards")
+    err0 = distributed.total_error_host(gs.poses, gs.landmarks[:, 0], gs.landmarks[:, 1], gs)
+    phase(21, f"config #5 graph: {n_lm} landmarks ({BACKEND_LANDMARKS} placed), {n_f} "
+              f"factors, K={BACKEND_KEYFRAMES}, capacities {g.landmarks.shape[0]} / "
+              f"{g.obs_kf.shape[0]}, no factor dropped at {SHARDS} shards; host seconds: "
+              f"world {host_s['world']:.2f}, consensus align {host_s['align']:.2f} "
+              f"({ainfo['n_registered_pairs']} pairs registered), build {host_s['build']:.2f}")
+
+    def run(shards):
+        marks = EventMarks(DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        out, launches, wall = zeroed_run(lambda: distributed.optimize_sharded(
+            g, make_map_mesh([DEVICE] * shards), num_iters=BACKEND_ITERS,
+            damping=BACKEND_DAMPING, marks=marks))
+        want = {k: 0 for k in launches}
+        want["segment_sum"] = BACKEND_SUMS * shards * BACKEND_ITERS
+        if launches != want:
+            raise AssertionError(f"config #5 at S={shards}: launches {launches}, "
+                                 f"expected {want}")
+        return out, launches, wall, marks.stage_ms(), torch.cuda.max_memory_allocated()
+
+    (poses, lms, err), launches, wall, stages, peak = run(SHARDS)
+    before, after = gauge_error(gt, g.poses), gauge_error(gt, poses)
+    if not (np.isfinite(err) and err < err0 and after < 0.6 * before):
+        raise AssertionError(f"config #5: error {err0:.6e} -> {err:.6e}, gauge-aligned "
+                             f"keyframe error {before:.4f} -> {after:.4f} m")
+    iter_ms = sum(stages.values()) / BACKEND_ITERS
+    split = ", ".join(f"{k} {v / BACKEND_ITERS:.2f}" for k, v in stages.items())
+    phase(21, f"optimize_sharded S={SHARDS} shards of {card}, {BACKEND_ITERS} GN iterations, "
+              f"damping {BACKEND_DAMPING}: error {err0:.6e} -> {err:.6e}, gauge-aligned "
+              f"keyframe error {before:.4f} -> {after:.4f} m (bar 0.6x); {iter_ms:.2f} ms per "
+              f"iteration (CUDA events; per iteration: {split}; schur includes the psum and "
+              f"the pose system, cross is the cross term); wall {wall:.2f} s; "
+              f"{launches['segment_sum'] / BACKEND_ITERS:.0f} segment_sum launches per "
+              f"iteration; peak device memory {peak / 1e9:.3f} GB")
+    (p2, l2, e2), _, wall2, stages2, _ = run(SHARDS)
+    if not (torch.equal(p2, poses) and torch.equal(l2, lms) and e2 == err):
+        raise AssertionError("config #5: a second S=4 run differs")
+    phase(21, f"a second S={SHARDS} run equals the first bit for bit: "
+              f"{sum(stages2.values()) / BACKEND_ITERS:.2f} ms per iteration ("
+              f"{', '.join(f'{k} {v / BACKEND_ITERS:.2f}' for k, v in stages2.items())}), "
+              f"wall {wall2:.2f} s")
+    (p1, l1, e1), _, wall1, stages1, peak1 = run(1)
+    diff = p1 - poses         # headings near +-pi: compare them wrapped
+    diff[:, 2] = torch.remainder(diff[:, 2] + np.pi, 2 * np.pi) - np.pi
+    dp = float(diff.abs().max())
+    dl = float((l1 - lms).abs().max())
+    if not (bool((diff.abs() <= 1e-4 + 1e-4 * p1.abs()).all()) and dl <= 1e-3):
+        raise AssertionError(f"config #5: S={SHARDS} vs S=1 poses {dp:.3e}, landmarks {dl:.3e}")
+    phase(21, f"S=1: error {e1:.6e}, {sum(stages1.values()) / BACKEND_ITERS:.2f} ms per "
+              f"iteration ({', '.join(f'{k} {v / BACKEND_ITERS:.2f}' for k, v in stages1.items())}),"
+              f" wall {wall1:.2f} s, peak {peak1 / 1e9:.3f} GB; S={SHARDS} vs S=1: poses "
+              f"{dp:.3e} (bar 1e-4), landmarks {dl:.3e} (bar 1e-3)")
+    dry = dryrun.dryrun_backend(SHARDS, DEVICE)
+    phase(21, f"dryrun_backend on {SHARDS} shards of the card: error {dry['err']:.6e}, "
+              f"launches {dry['launches']}")
+    rows = segment_sum_measure(backend_segment_inputs(g, SHARDS))
+    for name, r in rows.items():
+        phase(21, f"segment_sum {name} (shard 0 of {SHARDS}: {r['columns']} columns, "
+                  f"{r['entries']} entries, {r['segments']} segments): kernel {r['ms']:.4f} "
+                  f"ms, plain {r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms "
+                  f"(max diff {r['library_err']:.3e}), bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]}); bit for bit the plain version")
+    return launches, rows
+
+
+def phase21_smooth(log, est):
+    """(b) smooth_trajectory on the card, greedy and tracked, twice each."""
+    import numpy as np
+
+    from fastslam_tpu_torch.backend.integration import smooth_trajectory
+    from fastslam_tpu_torch.config import FastSLAMConfig
+
+    total = None
+    for tracking in (False, True):
+        runs = []
+        for _ in range(2):
+            out, launches, wall = zeroed_run(lambda: smooth_trajectory(
+                log, est, FastSLAMConfig(), use_tracking=tracking, device=DEVICE))
+            runs.append((out, launches, wall))
+        (poses, ticks, info), launches, wall = runs[0]
+        if not np.array_equal(runs[1][0][0], poses):
+            raise AssertionError(f"smooth_trajectory (tracking {tracking}): a second run differs")
+        if not np.isfinite(poses).all() or launches["segment_sum"] == 0:
+            raise AssertionError(f"smooth_trajectory: finite {np.isfinite(poses).all()}, "
+                                 f"launches {launches}")
+        gt = log.gt_poses[ticks, :2]
+        err = lambda p: float(np.linalg.norm(p[:, :2] - gt, axis=1).mean())
+        phase(21, f"smooth_trajectory ({'tracked' if tracking else 'greedy'}) on phase 12's "
+                  f"fused estimates, {len(ticks)} keyframes: mean keyframe error "
+                  f"{err(est[ticks]):.4f} -> {err(poses):.4f} m, {info['num_landmarks']} "
+                  f"landmarks, {info['num_factors']} factors, "
+                  f"{info['reassociation_rounds']} re-association rounds; {wall:.2f} s "
+                  f"(again {runs[1][2]:.2f} s, bit for bit); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+        total = launches if total is None else {k: total[k] + launches[k] for k in total}
+    return total
+
+
+def merge_maps(n=MERGE_LANDMARKS, seed=0, theta=0.004, tx=0.4, ty=-0.3, noise=0.02):
+    """A ``tests/test_map_merge.py:make_maps``-style pair: n landmarks per
+    map, 85 % shared, B's map in a frame offset by (theta, tx, ty), A's map
+    in 2n slots so that B's own landmarks append."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_shared = int(0.85 * n)
+    side = 3.0 * np.sqrt(n)
+    shared = rng.uniform(-side, side, (n_shared, 2))
+    a_only = rng.uniform(-side, side, (n - n_shared, 2))
+    b_only = rng.uniform(-side, side, (n - n_shared, 2))
+    c, s = np.cos(theta), np.sin(theta)
+    rot = np.array([[c, -s], [s, c]])
+    b_world = np.concatenate([shared + rng.normal(0, noise, shared.shape), b_only])
+    b_frame = (b_world - np.array([tx, ty])) @ rot
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)
+    lm_a = np.concatenate([shared, a_only, np.zeros((n, 2))])
+    valid_a = torch.arange(2 * n) < n
+    return [f32(lm_a), valid_a, f32(b_frame), torch.ones(n, dtype=torch.bool)], rot
+
+
+def phase21_merge():
+    """(c) merge_sessions on the card against the CPU (plain path)."""
+    import torch
+
+    from fastslam_tpu_torch.backend.map_merge import merge_sessions
+
+    args, rot = merge_maps()
+    want_al, want_m, _ = merge_sessions(*args)
+    (al, m, _), launches, wall = zeroed_run(
+        lambda: merge_sessions(*(a.to(DEVICE) for a in args)))
+    err = max(float((al.rotation.cpu() - want_al.rotation).abs().max()),
+              float((al.translation.cpu() - want_al.translation).abs().max()))
+    masks = all(torch.equal(getattr(m, f).cpu(), getattr(want_m, f))
+                for f in ("valid", "matched_b", "appended_b", "dropped_b"))
+    if err > MERGE_TOL or int(al.num_matched) != int(want_al.num_matched) or not masks \
+            or launches[ICP] == 0:
+        raise AssertionError(f"merge_sessions on the card vs cpu: transform {err:.3e}, matched "
+                             f"{int(al.num_matched)} / {int(want_al.num_matched)}, masks equal "
+                             f"{masks}, launches {launches}")
+    truth = float(abs(al.rotation.cpu().numpy() - rot).max())
+    phase(21, f"merge_sessions, {MERGE_LANDMARKS} landmarks per map, on the card: transform "
+              f"within {err:.3e} of the CPU's (bar {MERGE_TOL}), {int(al.num_matched)} "
+              f"matched, {int(m.matched_b.sum())} fused and {int(m.appended_b.sum())} appended "
+              f"(masks equal), rotation {truth:.3e} from the truth; {wall:.3f} s, "
+              f"{launches[ICP]} {ICP} launches")
+    return launches
+
+
+def phase21(log, est, card):
+    """The pose-graph backend on the card: (a) BASELINE config #5, (b)
+    trajectory smoothing, (c) the map merge.  Returns the backend path's
+    launches (the first S=4 run, the first smoothing runs, the merge) and
+    segment_sum's measurements."""
+    launches, rows = phase21_config5(card)
+    smooth = phase21_smooth(log, est)
+    merge = phase21_merge()
+    return {k: launches[k] + smooth[k] + merge[k] for k in launches}, rows
+
+
 def ring_blocks(s, p_local, gen):
     """S packed particle blocks ``[p_local, 3 + 1 + 6L + 1]`` on the card."""
     import torch
@@ -2044,18 +2344,23 @@ def main() -> int:
     paths["hooked_online"] = phase18(log, online_est, online_wall)
     paths["api"] = phase19(log)
     paths["tracked_online"], paths["jderobot"] = phase20(log, card)
+    paths["backend"], seg_rows = phase21(log, online_est, card)
+    cross = seg_rows["cross"]      # the widest of the backend's sums
+    errs["segment_sum"] = 0.0
+    times["segment_sum"] = (cross["ms"], cross["plain_ms"], cross["library_ms"])
+    bounds["segment_sum"] = cross["bound"]
 
+    print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": sum(path[name] for path in paths.values()),
-         "launches_by_path": {k: path[name] for k, path in paths.items()},
+         "launches": sum(path.get(name, 0) for path in paths.values()),
+         "launches_by_path": {k: path.get(name, 0) for k, path in paths.items()},
          "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": times[name][2]}
         | ({"onchip_bound_ms": onchip} if name == "mul_add" else {})
         for name, (src, replaces) in KERNELS.items()]}))
-    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,7 +22,12 @@ Counterpart of ``fastslam_tpu/core/pallas_kernels.py``:
   entry points of :mod:`fastslam_tpu_torch.probes` time: the device-memory
   copy over the fused update's buffer set (:func:`hbm_copy`), the
   shared-memory stream (:func:`mul_add`) and the FP32 FMA rate
-  (:func:`fma_chain`).
+  (:func:`fma_chain`);
+* the deterministic segment sums of the pose-graph backend
+  (:func:`segment_sum`, ``csrc/segment_sum.cu``), a port-only kernel in place
+  of XLA's float scatter-adds: C float32 value columns summed in float64 over
+  the segments of a CSR layout (:func:`segment_layout`), one warp per
+  segment in one fixed order.
 
 :func:`fused_update` is the blocks-layout (``[P, L, k]``) entry of the
 per-tick motion kernel: it transposes to planes and back, as the JAX
@@ -58,7 +63,7 @@ from __future__ import annotations
 import ctypes
 import math
 import struct
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -68,7 +73,8 @@ from fastslam_tpu_torch.core.state import FilterState, from_planes, to_planes
 LAUNCHES = {"fused_update_planes": 0, "fused_update_planes_multi": 0,
             "fused_fs2_planes": 0, "fused_fs2_planes_multi": 0,
             "icp_correspondences": 0, "icp_point_to_line": 0, "icp_sin_cos": 0,
-            "ring_halo_exchange": 0, "hbm_copy": 0, "mul_add": 0, "fma_chain": 0}
+            "ring_halo_exchange": 0, "hbm_copy": 0, "mul_add": 0, "fma_chain": 0,
+            "segment_sum": 0}
 
 _LOG_TWO_PI = math.log(2.0 * math.pi)
 _PI = math.pi
@@ -1624,3 +1630,127 @@ def icp_rotation_sin_cos(x):
             ctypes.c_int(x.numel()))
     LAUNCHES["icp_sin_cos"] += 1
     return s, c
+
+
+# ---------------------------------------------------------------------------
+# deterministic segment sums (the pose-graph backend)
+# ---------------------------------------------------------------------------
+
+# lanes of a warp: one warp sums one segment (csrc/segment_sum.cu)
+SEGMENT_LANES = 32
+
+
+class Segments(NamedTuple):
+    """A CSR segment layout: segment ``s`` owns entries ``offsets[s]`` ..
+    ``offsets[s + 1] - 1`` of ``perm``, each the index of a value within a
+    column.  ``perm`` int32 ``[n]`` (entries past ``offsets[-1]`` are
+    unused), ``offsets`` int32 ``[S + 1]``."""
+
+    perm: torch.Tensor
+    offsets: torch.Tensor
+
+    @property
+    def num_segments(self) -> int:
+        return self.offsets.shape[0] - 1
+
+
+def segment_layout(index: torch.Tensor, valid: Optional[torch.Tensor],
+                   num_segments: int) -> Segments:
+    """The layout that groups the entries ``i`` with ``valid[i]`` by
+    ``index[i]`` in ``[0, num_segments)``, each segment's entries in index
+    order (a stable sort); invalid entries belong to no segment.  Torch ops
+    only, on the device of ``index``, with no host sync: a graph builds it
+    once and sums through it every iteration."""
+    key = index.long()
+    if valid is not None:
+        key = torch.where(valid, key, num_segments)
+    sorted_key, order = torch.sort(key, stable=True)
+    bounds = torch.arange(num_segments + 1, dtype=torch.int64, device=index.device)
+    offsets = torch.searchsorted(sorted_key, bounds)
+    return Segments(order.to(torch.int32), offsets.to(torch.int32))
+
+
+def segment_sum_ref(values: torch.Tensor, segments: Segments) -> torch.Tensor:
+    """Plain version of :func:`segment_sum`, in the kernel's order and
+    precision: entry ``j`` of a segment goes to lane ``j % 32``, each lane
+    adds its entries in turn from 0.0 in float64, then the 32 lane partials
+    are added by the halving tree ``x[l] + x[l + h]``, h = 16, ..., 1 (the
+    kernel's ``__shfl_xor_sync`` tree adds the same pairs).  Lanes of all
+    segments advance together, one round of 32 entries at a time, by an
+    ``index_put_`` without accumulation (each (segment, lane) takes at most
+    one entry a round)."""
+    c = values.shape[0]
+    device = values.device
+    s = segments.num_segments
+    offsets = segments.offsets.long()
+    e = int(offsets[-1])
+    acc = torch.zeros((c, s * SEGMENT_LANES), dtype=torch.float64, device=device)
+    if e:
+        counts = offsets[1:] - offsets[:-1]
+        seg = torch.repeat_interleave(torch.arange(s, device=device), counts,
+                                      output_size=e)
+        pos = torch.arange(e, device=device) - offsets[:-1][seg]
+        slot = seg * SEGMENT_LANES + pos % SEGMENT_LANES
+        rnd = pos // SEGMENT_LANES
+        by_round = torch.sort(rnd, stable=True).indices
+        rounds = int(rnd.max()) + 1
+        starts = torch.searchsorted(rnd[by_round], torch.arange(rounds + 1, device=device))
+        src = values[:, segments.perm[:e].long()].double()
+        for lo, hi in zip(starts[:-1].tolist(), starts[1:].tolist()):
+            sel = by_round[lo:hi]
+            idx = slot[sel]
+            acc[:, idx] = acc[:, idx] + src[:, sel]
+    x = acc.view(c, s, SEGMENT_LANES)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _check_segment_inputs(values, segments: Segments):
+    if values.dim() != 2 or values.dtype != torch.float32:
+        raise ValueError(f"segment_sum takes float32 [C, n] values, got {values.dtype} "
+                         f"{tuple(values.shape)}")
+    perm, offsets = segments
+    if perm.dtype != torch.int32 or offsets.dtype != torch.int32 or perm.dim() != 1 \
+            or offsets.dim() != 1 or offsets.shape[0] < 1:
+        raise ValueError("a segment layout is int32 perm [n] and int32 offsets [S + 1]")
+    if perm.shape[0] > values.shape[1]:
+        raise ValueError(f"{perm.shape[0]} layout entries for columns of {values.shape[1]}")
+    if perm.device != values.device or offsets.device != values.device:
+        raise ValueError("values and layout must be on one device")
+    if values.numel() >= 2 ** 31 or offsets.shape[0] >= 2 ** 31:
+        raise ValueError("segment_sum takes fewer than 2^31 values and segments")
+
+
+def segment_sum(values: torch.Tensor, segments: Segments) -> torch.Tensor:
+    """Sums of value columns over the segments of a layout, in one fixed order.
+
+    Args:
+      values: float32 ``[C, n]`` (or ``[n]``, one column), contiguous; the
+        entries of ``segments.perm`` index its columns.
+      segments: a :class:`Segments` layout (:func:`segment_layout`) on the
+        same device.
+
+    Returns float64 ``[C, S]`` (or ``[S]``): column ``c``'s sum over each
+    segment, accumulated in float64, 0.0 for an empty one; the same bits on
+    every run and equal to :func:`segment_sum_ref` bit for bit.  On CUDA one
+    launch of ``segment_sum_kernel``.
+    """
+    squeeze = values.dim() == 1
+    values = values[None] if squeeze else values
+    if values.device.type == "cpu":
+        out = segment_sum_ref(values, segments)
+        return out[0] if squeeze else out
+    _check_segment_inputs(values, segments)
+    device = _require_cuda(values, *segments)
+    from fastslam_tpu_torch.core import _build
+
+    c, n = values.shape
+    s = segments.num_segments
+    out = torch.zeros((c, s), dtype=torch.float64, device=device)   # empty segments
+    _launch(_build.load().segment_sum_launch, device, _ptr(values), _ptr(segments.perm),
+            _ptr(segments.offsets), _ptr(out), ctypes.c_int(c), ctypes.c_int(n),
+            ctypes.c_int(s))
+    LAUNCHES["segment_sum"] += 1
+    return out[0] if squeeze else out

@@ -1,7 +1,7 @@
 """Carry state and configuration across from the JAX package, as numpy.
 
-The JAX package's ``PlanesState``, ``FilterState`` and ``FastSLAMConfig`` are converted by
-their field names, so both packages can compute on identical inputs (the
+The JAX package's ``PlanesState``, ``FilterState``, ``FastSLAMConfig`` and the
+backend's ``PoseGraph`` are converted by their field names, so both packages can compute on identical inputs (the
 parity tests do this).  Nothing here imports JAX: the caller hands over numpy
 arrays and plain dictionaries.
 """
@@ -14,6 +14,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from fastslam_tpu_torch.backend.pose_graph import PoseGraph
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core.state import FilterState, PlanesState
 
@@ -80,3 +81,21 @@ def config_from_jax_fields(fields: Mapping[str, object]) -> FastSLAMConfig:
     if unknown:
         raise ValueError(f"fields the port does not know: {sorted(unknown)}")
     return FastSLAMConfig(**{k: v for k, v in fields.items() if k in known})
+
+
+def pose_graph_from_numpy(arrays: Mapping[str, np.ndarray],
+                          device: torch.device | str) -> PoseGraph:
+    """A ``PoseGraph``'s fields as numpy arrays (``graph._asdict()`` of
+    either package) -> the port's graph on ``device``, every field with its
+    dtype (float32, int32, bool)."""
+    missing = [name for name in PoseGraph._fields if arrays.get(name) is None]
+    if missing:
+        raise KeyError(f"missing pose-graph fields {missing}")
+    return PoseGraph(**{name: torch.from_numpy(np.array(arrays[name])).to(device)
+                        for name in PoseGraph._fields})
+
+
+def pose_graph_to_numpy(graph: PoseGraph) -> Dict[str, np.ndarray]:
+    """The port's graph -> numpy arrays under the field names."""
+    return {name: getattr(graph, name).detach().cpu().numpy()
+            for name in PoseGraph._fields}

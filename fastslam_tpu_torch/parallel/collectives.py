@@ -6,7 +6,8 @@ program that holds the shards' tensors as a list in shard order and loops
 over it, so each collective is an operation on that list:
 
 * :func:`all_gather`: concatenation in shard order;
-* :func:`psum`: the sum of per-shard integers or flags;
+* :func:`psum`: the sum of per-shard integers or flags, or of float
+  partials, added in shard order;
 * :func:`ppermute`: a shift along the ring, each shard's tensor copied to
   its neighbour's device;
 * the shard index is the controller's loop variable; :func:`shard_range`
@@ -48,9 +49,18 @@ def split(tensor: torch.Tensor, devices: Sequence[torch.device],
 
 
 def psum(values: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The sum of the shards' integers or flags (0-d tensors), on the first
-    shard's device."""
+    """The sum of the shards' tensors, on the first shard's device.
+
+    Integers or flags (0-d tensors) sum in int64.  Float partials (any
+    shape, one per shard) add in shard order, ``((v0 + v1) + v2) + ...``,
+    so a run repeats bit for bit; S shards agree with one shard within
+    rounding, as the JAX package's ``psum`` over the map axis does."""
     device = values[0].device
+    if values[0].is_floating_point():
+        total = values[0]
+        for v in values[1:]:
+            total = total + v.to(device)
+        return total
     return torch.stack([v.to(device, torch.int64) for v in values]).sum()
 
 

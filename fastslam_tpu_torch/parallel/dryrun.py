@@ -16,10 +16,13 @@ Counterpart of the JAX package's multi-chip dry run
   the JAX dry run substituted its ppermute exchange only because the CPU
   cannot lower remote DMAs.
 
-The JAX dry run also runs the distributed pose-graph backend, which is not
-ported (ROADMAP §1, the backend); that block is left out.
+The JAX dry run's distributed pose-graph backend block is
+:func:`dryrun_backend`: 8 keyframes, 3 landmarks, ``optimize_sharded`` on a
+map mesh of ``n_shards`` shards of the device, 2 iterations (on CUDA the
+Schur sums launch the segment-sum kernel, 4 times per shard per iteration).
 
-Usage: ``python -m fastslam_tpu_torch.parallel.dryrun [n_shards] [device]``.
+Usage: ``python -m fastslam_tpu_torch.parallel.dryrun [n_shards] [device]``
+runs both.
 """
 
 from __future__ import annotations
@@ -30,13 +33,15 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from fastslam_tpu_torch.backend.builder import build_pose_graph
+from fastslam_tpu_torch.backend.distributed import optimize_sharded
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import cuda_kernels, kernels
 from fastslam_tpu_torch.core.state import (
     Measurements, init_planes_state, init_state, pad_measurements,
 )
 from fastslam_tpu_torch.parallel.mesh import (
-    make_mesh, shard_planes_state, shard_state, unshard,
+    make_map_mesh, make_mesh, shard_planes_state, shard_state, unshard,
 )
 from fastslam_tpu_torch.parallel.resample import (
     halo_systematic_resample, shard_ancestor_window,
@@ -235,6 +240,44 @@ def dryrun_multichip(n_shards: int, device="cuda", *, config: Optional[FastSLAMC
     return results
 
 
+# the backend block's Schur sums per shard per iteration: by landmark, by
+# keyframe, by keyframe cell (the cross term), and the back-substitution
+BACKEND_SUMS_PER_SHARD = 4
+
+
+def dryrun_backend(n_shards: int, device="cuda", num_iters: int = 2) -> dict:
+    """The JAX dry run's backend block: a loop of 8 keyframes observing 3
+    landmarks (every landmark in the first shard's slot range; the factor
+    capacity of 24 per shard covers all 24 factors), ``optimize_sharded``
+    on a map mesh of ``n_shards`` shards of ``device``.  Checks finite poses
+    and error and, on CUDA, ``BACKEND_SUMS_PER_SHARD`` segment-sum launches
+    per shard per iteration.  Returns the poses, the error and the
+    launches."""
+    k = 8
+    t = np.linspace(0, 2 * np.pi, k, endpoint=False)
+    gt = np.stack([np.cos(t), np.sin(t), t + np.pi / 2], axis=-1)
+    lms = np.array([[2.0, 0.0], [0.0, 2.0], [-2.0, 0.5]])
+    obs = []
+    for i in range(k):
+        d = lms - gt[i, :2]
+        r = np.hypot(d[:, 0], d[:, 1])
+        b = (np.arctan2(d[:, 1], d[:, 0]) - gt[i, 2] + np.pi) % (2 * np.pi) - np.pi
+        obs.append(np.stack([r, b], -1))
+    graph = build_pose_graph(gt + 0.05, obs, max_landmarks=8 * n_shards,
+                             max_factors=24 * n_shards, device=device)
+    before = cuda_kernels.LAUNCHES["segment_sum"]
+    poses, _, err = optimize_sharded(graph, make_map_mesh([device] * n_shards),
+                                     num_iters=num_iters)
+    launches = cuda_kernels.LAUNCHES["segment_sum"] - before
+    want = BACKEND_SUMS_PER_SHARD * n_shards * num_iters
+    if torch.device(device).type == "cuda" and launches != want:
+        raise AssertionError(f"backend: {launches} segment_sum launches, expected {want}")
+    if not (bool(torch.isfinite(poses).all()) and np.isfinite(err)):
+        raise AssertionError(f"backend: poses finite {bool(torch.isfinite(poses).all())}, "
+                             f"error {err}")
+    return {"poses": poses, "err": err, "launches": {"segment_sum": launches}}
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     n = int(args[0]) if args else 4
@@ -243,6 +286,8 @@ def main(argv=None) -> int:
     for mode, r in results.items():
         print(mode, {k: v for k, v in r.items() if k in ("launches", "ring_launches",
                                                          "halo_path")})
+    backend = dryrun_backend(n, device)
+    print("backend", {"err": backend["err"], "launches": backend["launches"]})
     print(f"sharded dry run on {n} shards of {device}: ok")
     return 0
 

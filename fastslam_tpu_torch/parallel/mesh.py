@@ -1,6 +1,9 @@
-"""The particle mesh and the placement of a state on it.
+"""The particle mesh, the map mesh of the pose-graph backend, and the
+placement of a state on the particle mesh.
 
-Counterpart of ``fastslam_tpu/parallel/mesh.py``.  A mesh is a 1-D list of
+Counterpart of ``fastslam_tpu/parallel/mesh.py`` and of the 1-D ``"map"``
+mesh the JAX backend shards landmarks over (:class:`MapMesh`,
+``backend/distributed.py``).  A mesh is a 1-D list of
 devices, one per shard, in ring order; the particles split into S equal
 contiguous ranges, shard ``s`` holding range ``s``.  Each shard holds its own
 contiguous tensors: a landmark plane ``[L, P]`` shards on its particle axis
@@ -9,8 +12,9 @@ refuse; :func:`shard_planes_state` copies each slice.
 
 The list may name one card several times: a ring of S shards then lives on
 that card, and every per-shard kernel launch and the ring exchange run there.
-Two things are not ported and raise ``NotImplementedError``: the 2-D mesh with
-a map axis (``map_parallelism > 1``), and a mesh across distinct devices,
+A map mesh is the same list for the backend's landmark shards.  Two things
+are not ported and raise ``NotImplementedError``: the 2-D particle x map
+filter mesh (``map_parallelism > 1``), and a mesh across distinct devices,
 which needs peer access between the cards, the exchange kernel's cross-card
 form and ``torch.distributed`` (ROADMAP §1, the cross-card sharded engine).
 """
@@ -46,10 +50,40 @@ class ParticleMesh:
         return len(self.devices)
 
 
+@dataclass(frozen=True)
+class MapMesh:
+    """A 1-D map mesh: one device per landmark shard, in shard order."""
+
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.devices)
+
+
 def _physical(device: torch.device) -> Tuple[str, Optional[int]]:
     if device.type == "cuda" and device.index is None:
         return device.type, torch.cuda.current_device()
     return device.type, device.index
+
+
+def _one_device(devices) -> Tuple[torch.device, ...]:
+    devices = tuple(torch.device(d) for d in (devices if devices is not None else ["cuda"]))
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    if len({_physical(d) for d in devices}) > 1:
+        raise NotImplementedError(
+            "shards on distinct devices need peer access, the exchange "
+            "kernel's cross-card form and torch.distributed (ROADMAP §1, the "
+            f"cross-card sharded engine); got {[str(d) for d in devices]}")
+    return devices
+
+
+def make_map_mesh(devices: Optional[Sequence[Union[torch.device, str]]] = None) -> MapMesh:
+    """The 1-D map mesh over ``devices`` (one landmark shard each; the same
+    card may be named several times).  ``None`` means one shard on the
+    card."""
+    return MapMesh(_one_device(devices))
 
 
 def make_mesh(config: FastSLAMConfig,
@@ -61,15 +95,7 @@ def make_mesh(config: FastSLAMConfig,
         raise NotImplementedError(
             "the 2-D particle x map mesh is not ported (ROADMAP §1, the 2-D "
             "map-axis mesh)")
-    devices = tuple(torch.device(d) for d in (devices if devices is not None else ["cuda"]))
-    if not devices:
-        raise ValueError("a mesh needs at least one device")
-    if len({_physical(d) for d in devices}) > 1:
-        raise NotImplementedError(
-            "shards on distinct devices need peer access, the exchange "
-            "kernel's cross-card form and torch.distributed (ROADMAP §1, the "
-            f"cross-card sharded engine); got {[str(d) for d in devices]}")
-    return ParticleMesh(devices)
+    return ParticleMesh(_one_device(devices))
 
 
 def state_sharding(mesh: ParticleMesh, num_particles: int) -> List[Tuple[torch.device, slice]]:

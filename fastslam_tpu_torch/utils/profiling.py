@@ -11,6 +11,9 @@ Counterpart of ``fastslam_tpu/utils/profiling.py``:
 * :func:`annotate`: a named region (``torch.profiler.record_function``)
   that shows in those traces.
 
+* :class:`EventMarks`: stage ends marked inside a device computation, to
+  split its time by stage (CUDA events on a card).
+
 Also :func:`elapsed_ms`, the time of a function with CUDA events on a card
 (host clock on the CPU), and :func:`card`, the card's name and power limit
 as ``nvidia-smi`` reads them, which every device number is reported beside.
@@ -77,6 +80,43 @@ class PhaseTimer:
                 f"{row['mean_ms']:>10.3f}"
             )
         return "\n".join(lines)
+
+
+class EventMarks:
+    """Stage ends of a computation on one device: each call ``marks(name)``
+    ends stage ``name``, which began at the previous mark (or at
+    :meth:`start`).  CUDA events on a card (the device's time, and nothing
+    waits for them), the host clock on the CPU.  :meth:`stage_ms` sums each
+    stage's milliseconds over its occurrences."""
+
+    def __init__(self, device: torch.device | str):
+        self.device = torch.device(device)
+        self._marks: list = []
+
+    def _stamp(self):
+        if self.device.type == "cuda":
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    def start(self) -> None:
+        """Begin a stage without ending one."""
+        self._marks.append((None, self._stamp()))
+
+    def __call__(self, name: str) -> None:
+        self._marks.append((name, self._stamp()))
+
+    def stage_ms(self) -> Dict[str, float]:
+        """Milliseconds per stage name, summed (synchronizes the card)."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        out: Dict[str, float] = defaultdict(float)
+        for (_, a), (name, b) in zip(self._marks, self._marks[1:]):
+            if name is not None:
+                out[name] += a.elapsed_time(b) if cuda else (b - a) * 1e3
+        return dict(out)
 
 
 @contextlib.contextmanager

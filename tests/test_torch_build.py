@@ -38,7 +38,7 @@ def test_library_key_follows_every_csrc_file(tmp_path):
     assert _build.source_digest(csrc) != base
     assert [p.name for p in _build.sources(csrc)] == ["fused_fs2.cu", "fused_update.cu",
                                                       "icp_nn.cu", "probes.cu",
-                                                      "ring_halo.cu"]
+                                                      "ring_halo.cu", "segment_sum.cu"]
     assert _build.source_digest(_build.CSRC) in _build.library_path().name
 
 
@@ -95,6 +95,9 @@ def wrapper_calls(cfg):
         "mul_add": lambda: cuda_kernels.mul_add(meta(L, P), meta(L, P), meta(L, P),
                                                 passes=3, tile=32),
         "fma_chain": lambda: cuda_kernels.fma_chain(meta(L, P), passes=3),
+        "segment_sum": lambda: cuda_kernels.segment_sum(
+            meta(C, P), cuda_kernels.Segments(meta(P, dtype=torch.int32),
+                                              meta(L + 1, dtype=torch.int32))),
     }
 
 

@@ -838,3 +838,111 @@ def test_fused_graph_equals_eager_in_every_mode(device, kw):
     got = np.asarray(captured.est_poses)
     np.testing.assert_array_equal(got, np.asarray(eager.est_poses))
     assert np.isfinite(got).all() and max(captured.num_measurements) > 0
+
+
+def segment_case(kind, device, seed=0):
+    """(values [3, n], layout) on ``device``: ragged, skewed (one segment
+    of ~50,000 entries), mostly empty (2^20 segments), or all entries in
+    one segment with the identity order."""
+    rng = np.random.default_rng(seed)
+    n = 200_000
+    if kind == "ragged":
+        s, index = 5000, rng.integers(0, 5000, n)
+    elif kind == "skewed":
+        s = 300
+        index = np.where(rng.random(n) < 0.25, 17, rng.integers(0, s, n))
+    elif kind == "mostly_empty":
+        s, index = 1 << 20, rng.integers(0, 1 << 20, n // 8)
+        n = n // 8
+    else:
+        s, index = 1, np.zeros(n, np.int64)
+    values = torch.tensor(rng.normal(0, 1, (3, n)) * rng.choice([1e-3, 1.0, 1e3], (3, n)),
+                          dtype=torch.float32, device=device)
+    valid = torch.tensor(rng.random(n) < 0.9, device=device)
+    layout = cuda_kernels.segment_layout(torch.tensor(index, device=device), valid, s)
+    return values, layout
+
+
+@pytest.mark.parametrize("kind", ["ragged", "skewed", "mostly_empty", "one_segment"])
+def test_segment_sum_kernel_matches_plain(device, kind):
+    values, layout = segment_case(kind, device)
+    before = cuda_kernels.LAUNCHES["segment_sum"]
+    got = cuda_kernels.segment_sum(values, layout)
+    again = cuda_kernels.segment_sum(values, layout)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["segment_sum"] == before + 2
+    want = cuda_kernels.segment_sum_ref(values, layout)
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert torch.equal(cuda_kernels.segment_sum(values[0], layout), want[0])
+
+
+def test_segment_sum_refuses_bad_inputs(device):
+    values, layout = segment_case("ragged", device)
+    with pytest.raises(ValueError):
+        cuda_kernels.segment_sum(values.double(), layout)
+    with pytest.raises(ValueError):
+        cuda_kernels.segment_sum(values[:, ::2], layout)        # not contiguous
+
+
+def test_backend_on_the_card_matches_cpu_and_repeats(device):
+    """The sparse sharded optimizer and the dense single-device one on the
+    card against the CPU (the plain segment sums), and a second card run
+    bit for bit."""
+    from fastslam_tpu_torch.backend import builder, distributed, pose_graph
+    from fastslam_tpu_torch.parallel.mesh import make_map_mesh
+
+    rng = np.random.default_rng(3)
+    k = 24
+    t = np.linspace(0, 2 * np.pi, k, endpoint=False)
+    gt = np.stack([4 * np.cos(t), 4 * np.sin(t), t + np.pi / 2], axis=-1)
+    lms = rng.uniform(-7, 7, (40, 2))
+    obs = []
+    for i in range(k):
+        d = lms - gt[i, :2]
+        r = np.hypot(d[:, 0], d[:, 1])
+        b = (np.arctan2(d[:, 1], d[:, 0]) - gt[i, 2] + np.pi) % (2 * np.pi) - np.pi
+        obs.append(np.stack([r, b], -1)[r < 6.0])
+    noisy = gt + rng.normal(0, 0.3 / k, (k, 3)).cumsum(axis=0)
+    noisy[0] = gt[0]
+    out = {}
+    for dev in ("cpu", device, device):
+        g = builder.build_pose_graph(noisy, obs, max_landmarks=64, max_factors=1024,
+                                     device=dev)
+        sharded = distributed.optimize_sharded(g, make_map_mesh([dev] * 4), num_iters=4,
+                                               damping=1e-3)
+        single = pose_graph.optimize(g, num_iters=4)
+        out.setdefault(str(torch.device(dev).type), []).append((sharded, single))
+    (cpu_sharded, cpu_single), = out["cpu"]
+    (card_sharded, card_single), (again_sharded, again_single) = out["cuda"]
+    np.testing.assert_allclose(card_sharded[0].cpu().numpy(), cpu_sharded[0].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card_sharded[1].cpu().numpy(), cpu_sharded[1].numpy(), atol=1e-3)
+    np.testing.assert_allclose(card_single[0].cpu().numpy(), cpu_single[0].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    for a, b in zip(card_sharded[:2] + card_single[:2], again_sharded[:2] + again_single[:2]):
+        assert torch.equal(a, b)
+    assert card_sharded[2] == again_sharded[2]
+
+
+def test_map_merge_on_the_card_matches_cpu(device):
+    from fastslam_tpu_torch.backend import map_merge
+
+    rng = np.random.default_rng(5)
+    shared = rng.uniform(-40, 40, (1500, 2))
+    c, s = np.cos(0.1), np.sin(0.1)
+    rot = np.array([[c, -s], [s, c]])
+    lm_b = ((np.concatenate([shared + rng.normal(0, 0.02, shared.shape),
+                             rng.uniform(-40, 40, (300, 2))]) - [0.5, -0.3]) @ rot)
+    lm_a = np.concatenate([shared, rng.uniform(-40, 40, (400, 2))])
+    args = [torch.tensor(lm_a, dtype=torch.float32), torch.ones(len(lm_a), dtype=torch.bool),
+            torch.tensor(lm_b, dtype=torch.float32), torch.ones(len(lm_b), dtype=torch.bool)]
+    al_cpu, m_cpu, _ = map_merge.merge_sessions(*args)
+    before = cuda_kernels.LAUNCHES["icp_correspondences"]
+    al, m, _ = map_merge.merge_sessions(*(a.to(device) for a in args))
+    assert cuda_kernels.LAUNCHES["icp_correspondences"] > before
+    np.testing.assert_allclose(al.rotation.cpu().numpy(), al_cpu.rotation.numpy(), atol=1e-4)
+    np.testing.assert_allclose(al.translation.cpu().numpy(), al_cpu.translation.numpy(),
+                               atol=1e-4)
+    assert int(al.num_matched) == int(al_cpu.num_matched)
+    for field in ("valid", "matched_b", "appended_b", "dropped_b"):
+        assert torch.equal(getattr(m, field).cpu(), getattr(m_cpu, field)), field
