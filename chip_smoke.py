@@ -149,7 +149,29 @@ Phases, one line each (or more):
     greedy and tracked, each twice bit for bit, keyframe error before and
     after.  (c) ``merge_sessions`` on two maps of 4,096 landmarks against
     the same call on the CPU: the transform within 1e-4, the same matches
-    and masks, the ICP search's launches.
+    and masks, the ICP search's launches;
+22. the 2-D particle x map mesh: the blocks step on a 4 x 2 mesh of the card
+    at P=100,000, L=64, M=16 (motion parity, motion production with the halo
+    resampler, fs2; 3 ticks each, forced resamples), one launch of the
+    per-tick kernel per particle row per tick (4), each mode bit for bit
+    the same at S=1 and on the single-device step; ms per tick of the blocks
+    step (motion, fs2) on the 4 x 2 mesh beside the 1-D mesh at S=1 and S=4
+    and the single-device step, in turns;
+23. the engine across processes: the script starts itself twice
+    (``--worker <rank> <port> <dir>``), two processes on the card joined by
+    gloo, 2 shards each of a 4-shard mesh, P=100,000: the three blocks modes
+    of phase 22, 3 per-tick planes fs2 ticks and one chunk of C=16 (motion,
+    fs2), forced resamples through the whole-state gather and the halo
+    resampler; each process launches its kernel once per local shard per
+    tick or chunk; both processes' estimates and gathered states bit for
+    bit one process at S=4; the ring resampler refuses the group; ms per
+    tick of each process (blocks step with no resample, with the
+    whole-state gather, with the halo resampler; the chunked step), the host
+    ms of it in collectives and the bytes received through the group;
+24. the sharded checkpoint: both processes save their blocks and planes
+    states of phase 23 with ``save_sharded_checkpoint`` and load them into
+    fresh templates, bit for bit with the generator; seconds to save and to
+    load, bytes on disk.  A worker that fails fails the run.
 
 Any failure raises.  The card's name and power limit come on the line
 before the kernels' JSON summary (launches of each main path's first run
@@ -1946,6 +1968,16 @@ def phase14():
                   f"{time.perf_counter() - t0:.2f} s")
 
 
+def same_run(r, o):
+    """Two dry-run results of one mode equal bit for bit: estimates and
+    every field of the gathered state."""
+    import torch
+
+    return torch.equal(r["est"], o["est"]) and all(
+        (v is None and getattr(o["state"], k) is None) or torch.equal(v, getattr(o["state"], k))
+        for k, v in r["state"].__dict__.items())
+
+
 def sharded_config():
     return config(resample_threshold_frac=1.0)
 
@@ -1953,8 +1985,6 @@ def sharded_config():
 def phase15():
     """The sharded main path at full width, then S=1 and the single-device
     steps on the same draws, bit for bit."""
-    import torch
-
     from fastslam_tpu_torch.core.state import pad_measurements
     from fastslam_tpu_torch.parallel import dryrun
 
@@ -1975,12 +2005,7 @@ def phase15():
         if mode == "resample":
             continue
         for n, other in others.items():
-            o = other[mode]
-            same = torch.equal(r["est"], o["est"]) and all(
-                (v is None and getattr(o["state"], k) is None)
-                or torch.equal(v, getattr(o["state"], k))
-                for k, v in r["state"].__dict__.items())
-            if not same:
+            if not same_run(r, other[mode]):
                 raise AssertionError(f"{mode}: {SHARDS} shards differ from "
                                      f"{'1 shard' if n else 'the single-device step'}")
         lw = r["state"].log_weights
@@ -2265,6 +2290,372 @@ def phase19(log):
     return launches
 
 
+# phases 22-24: the 2-D particle x map mesh, the engine across processes, and
+# its sharded checkpoint, all on the one card
+MESH2D = (4, 2)      # particle rows x map shards of phase 22
+BLOCKS_MODES = ("blocks motion parity", "blocks motion production", "blocks fs2")
+MP_PROCESSES, MP_SHARDS = 2, 2   # phase 23: processes on the card, shards in each
+MP_MODES = BLOCKS_MODES + ("planes fs2", "chunked motion", "chunked fs2")
+MP_TIMEOUT = 600     # seconds for the two processes of phases 23-24
+
+
+def mesh2d_times(mesh2d):
+    """ms per tick of the blocks step on the 4 x 2 mesh, on the 1-D mesh at
+    S = 1 and S = 4 (as many particle rows) and on the single-device step, in
+    turns (CUDA events over 5 ticks, each after the state of the previous
+    one; the config's resample threshold)."""
+    import torch
+
+    from fastslam_tpu_torch.core import kernels
+    from fastslam_tpu_torch.core.state import init_state, pad_measurements
+    from fastslam_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from fastslam_tpu_torch.parallel.sharded import make_sharded_step
+
+    times = {}
+    for proposal in ("motion", "fastslam2"):
+        cfg = config(proposal_mode=proposal)
+        ms = pad_measurements(cfg, MEASUREMENTS, DEVICE)
+        draws = kernels.draw(torch.Generator(device=DEVICE).manual_seed(22), P,
+                             fs2=proposal == "fastslam2")
+        meshes = {"S=1": make_mesh(cfg, [DEVICE]), "S=4": make_mesh(cfg, [DEVICE] * 4),
+                  "4x2": mesh2d}
+        for name in ("S=1", "S=4", "4x2", "single", "4x2", "S=4", "S=1", "single"):
+            if name == "single":
+                holder = [init_state(cfg, DEVICE)]
+                step = lambda s: kernels.fastslam_step(s, 0.0, 0.4, ms, cfg, draws)
+            else:
+                holder = [shard_state(init_state(cfg, DEVICE), meshes[name], cfg)]
+                sharded = make_sharded_step(cfg, meshes[name])
+                step = lambda s, sharded=sharded: sharded(s, 0.0, 0.4, ms, draws)
+
+            def run():
+                holder[0], _ = step(holder[0])
+            times.setdefault((proposal, name), []).append(time_ms(run, 5))
+    return times
+
+
+def phase22():
+    """The blocks step on a 4 x 2 particle x map mesh of the card at full
+    width: one launch of the per-tick kernel per particle row per tick, bit
+    for bit S = 1 and the single-device step; ms per tick beside them."""
+    from fastslam_tpu_torch.core.state import pad_measurements
+    from fastslam_tpu_torch.parallel import dryrun
+    from fastslam_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = sharded_config()
+    ms = pad_measurements(cfg, MEASUREMENTS, DEVICE)
+    rows, maps = MESH2D
+    mesh = make_mesh(cfg, [DEVICE] * (rows * maps), map_parallelism=maps)
+    if mesh.shape != {"particles": rows, "map": maps}:
+        raise AssertionError(f"mesh shape {mesh.shape}")
+    results, launches, wall = zeroed_run(lambda: dryrun.run_steps(
+        cfg, None, DEVICE, ms, ticks=3, modes=BLOCKS_MODES, mesh=mesh))
+    expected = {k: 0 for k in launches} | {"fused_update_planes": rows * 3 * len(BLOCKS_MODES)}
+    if launches != expected:
+        raise AssertionError(f"2-D mesh launches {launches}, expected {expected}")
+    phase(22, f"blocks step on a {rows} x {maps} mesh of the card, P={P} L={L} M={M}, "
+              f"{len(BLOCKS_MODES)} modes x 3 ticks, forced resamples: wall {wall:.2f} s, "
+              f"launches {launches}")
+    others = {n: dryrun.run_steps(cfg, n, DEVICE, ms, ticks=3, modes=BLOCKS_MODES)
+              for n in (1, None)}
+    for mode, r in results.items():
+        if r["launches"] != {"fused_update_planes": rows * 3}:
+            raise AssertionError(f"{mode}: launches {r['launches']}, expected {rows * 3}")
+        for n, other in others.items():
+            if not same_run(r, other[mode]):
+                raise AssertionError(f"{mode}: the {rows} x {maps} mesh differs from "
+                                     f"{'1 shard' if n else 'the single-device step'}")
+        phase(22, f"{mode}: {rows * 3} launches of fused_update_planes (one per particle "
+                  f"row per tick), shard lm_mean {tuple(r['shards'][0].lm_mean.shape)}, bit for "
+                  f"bit the same at S=1 and on the single-device step")
+    times = mesh2d_times(mesh)
+    for proposal in ("motion", "fastslam2"):
+        phase(22, f"blocks step, {proposal}, P={P} L={L} M={M} (config threshold): " + ", ".join(
+            f"{name} {min(v):.4f} ms per tick (runs {' / '.join(f'{x:.4f}' for x in v)})"
+            for (p_, name), v in times.items() if p_ == proposal))
+    return launches, times
+
+
+def digest(t):
+    """A tensor's dtype, shape and SHA-256 of its bytes: equal digests are
+    equal tensors."""
+    import hashlib
+
+    host = t.detach().cpu().contiguous()
+    return str(host.dtype), tuple(host.shape), hashlib.sha256(host.numpy().tobytes()).hexdigest()
+
+
+def state_digests(state):
+    return {k: None if v is None else digest(v) for k, v in state.__dict__.items()}
+
+
+def mp_tick_times(cfg, mesh, ms):
+    """ms per tick of this process on the 2-process mesh (host clock, the
+    device synchronised), the host ms per tick in collectives and the bytes
+    per tick this process received through the group: the blocks step with
+    no resample, with the whole-state gather, with the halo resampler, and
+    one chunk of the chunked planes step (motion, fs2), each after one
+    warm-up tick or chunk."""
+    import torch
+
+    from fastslam_tpu_torch.core import kernels
+    from fastslam_tpu_torch.core.state import Measurements, init_planes_state, init_state
+    from fastslam_tpu_torch.parallel import collectives
+    from fastslam_tpu_torch.parallel.mesh import shard_planes_state, shard_state
+    from fastslam_tpu_torch.parallel.sharded import (
+        make_sharded_planes_chunked_step, make_sharded_step,
+    )
+
+    chunk_ms = Measurements(*tiled(ms))
+    rots, trans = torch.zeros(C, device=DEVICE), torch.full((C,), 0.4, device=DEVICE)
+    runs = (("blocks motion, no resample", dict(resample_threshold_frac=0.0), 5),
+            ("blocks motion, whole-state gather", dict(resample_threshold_frac=1.0), 3),
+            ("blocks motion, halo resample",
+             dict(resample_threshold_frac=1.0, distributed_resample=True), 3),
+            ("chunked motion", dict(resample_threshold_frac=1.0), 2),
+            ("chunked fs2", dict(resample_threshold_frac=1.0, proposal_mode="fastslam2"), 2))
+    out = {}
+    for tag, changes, n in runs:
+        c = cfg.replace(**changes)
+        gen = torch.Generator(device=DEVICE).manual_seed(23)
+        if tag.startswith("chunked"):
+            state = shard_planes_state(init_planes_state(c, DEVICE), mesh, c)
+            step = make_sharded_planes_chunked_step(c, mesh, C)
+            tick = lambda s, step=step, c=c: step(s, rots, trans, chunk_ms, kernels.draw(
+                gen, P, C, fs2=kernels.uses_fs2(c)))
+            ticks = n * C
+        else:
+            state = shard_state(init_state(c, DEVICE), mesh, c)
+            step = make_sharded_step(c, mesh)
+            tick = lambda s, step=step: step(s, 0.0, 0.4, ms, kernels.draw(gen, P))
+            ticks = n
+        state, _ = tick(state)
+        torch.cuda.synchronize()
+        before = dict(collectives.TRAFFIC)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = tick(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[tag] = {"ms_per_tick": wall / ticks * 1e3,
+                    "collective_ms_per_tick":
+                        (collectives.TRAFFIC["seconds"] - before["seconds"]) / ticks * 1e3,
+                    "bytes_per_tick": (collectives.TRAFFIC["bytes"] - before["bytes"]) / ticks,
+                    "calls_per_tick": (collectives.TRAFFIC["calls"] - before["calls"]) / ticks}
+    return out
+
+
+def mp_checkpoint(results, mesh, outdir):
+    """Phase 24 in each process: save the blocks and the planes state of the
+    2-process run with their generator, load both into fresh templates, bit
+    for bit; seconds to save and to load, bytes on disk."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from fastslam_tpu_torch.core.state import init_planes_state, init_state
+    from fastslam_tpu_torch.io.sharded_checkpoint import (
+        load_sharded_checkpoint, save_sharded_checkpoint,
+    )
+    from fastslam_tpu_torch.parallel.mesh import shard_planes_state, shard_state
+
+    cfg = sharded_config()
+    out = {}
+    for mode, template_of in (("blocks motion production", lambda: shard_state(
+                                  init_state(cfg, DEVICE), mesh, cfg)),
+                              ("chunked fs2", lambda: shard_planes_state(
+                                  init_planes_state(cfg, DEVICE), mesh, cfg))):
+        shards = results[mode]["shards"]
+        gen = torch.Generator(device=DEVICE).manual_seed(24)
+        torch.randn(7, generator=gen, device=DEVICE)
+        path = os.path.join(outdir, mode.replace(" ", "_"))
+        template = template_of()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        save_sharded_checkpoint(path, shards, mesh=mesh, iteration=3,
+                                robot_pose=[1.2, 0.0, 0.0], generator=gen)
+        dist.barrier()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, meta = load_sharded_checkpoint(path, template, mesh=mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = all((v is None and getattr(g, k) is None)
+                   or (getattr(g, k).device == v.device and torch.equal(getattr(g, k), v))
+                   for g, s in zip(got, shards) for k, v in s.__dict__.items())
+        same = same and meta["iteration"] == 3 and torch.equal(
+            torch.randn(5, generator=meta["generator"], device=DEVICE),
+            torch.randn(5, generator=gen, device=DEVICE))
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        out[mode] = {"save_s": save_s, "load_s": load_s, "bytes": nbytes, "same": same,
+                     "files": sorted(os.listdir(path))}
+    return out
+
+
+def mp_worker(rank: int, port: int, outdir: str) -> int:
+    """One of phase 23's processes: gloo on the card, 2 shards of the
+    4-shard mesh; the main path's modes with the counters zeroed just before,
+    their estimates and the digests of their gathered states, the ring
+    resampler's refusal, the tick times and phase 24's checkpoint."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from fastslam_tpu_torch.core.state import pad_measurements
+    from fastslam_tpu_torch.parallel import dryrun
+    from fastslam_tpu_torch.parallel.mesh import make_mesh
+    from fastslam_tpu_torch.parallel.multihost import initialize_distributed
+    from fastslam_tpu_torch.parallel.ring_resample import ring_halo_resample
+
+    if not torch.cuda.is_available():
+        print("chip_smoke worker: no CUDA device", file=sys.stderr)
+        return 1
+    info = initialize_distributed(f"localhost:{port}", MP_PROCESSES, rank, backend="gloo")
+    cfg = sharded_config()
+    ms = pad_measurements(cfg, MEASUREMENTS, DEVICE)
+    mesh = make_mesh(cfg, [DEVICE] * MP_SHARDS)
+    results, launches, wall = zeroed_run(lambda: dryrun.run_steps(
+        cfg, None, DEVICE, ms, chunk=C, ticks=3, modes=MP_MODES, mesh=mesh))
+    out = {"info": info, "backend": dist.get_backend(), "launches": launches, "wall": wall,
+           "mesh": (mesh.process_index, mesh.num_processes, mesh.num_shards),
+           "modes": {m: {"est": r["est"].cpu(), "digests": state_digests(r["state"]),
+                         "launches": r["launches"], "local": len(r["shards"])}
+                     for m, r in results.items()}}
+    try:
+        ring_halo_resample(results["blocks motion production"]["shards"],
+                           torch.tensor(0.0, device=DEVICE), mesh, cfg)
+        out["ring_refusal"] = None
+    except NotImplementedError as e:
+        out["ring_refusal"] = str(e)
+    # the halo resampler across the processes: its halo path and its fallback
+    out["resamplers"] = {profile: dryrun.check_resamplers(cfg, None, DEVICE, profile, 0.0042,
+                                                          seed=14, mesh=mesh)
+                         for profile in ("healthy", "collapsed")}
+    out["times"] = mp_tick_times(cfg, mesh, ms)
+    out["checkpoint"] = mp_checkpoint(results, mesh, outdir)
+    torch.save(out, os.path.join(outdir, f"worker_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(outdir):
+    """Start both processes of phase 23 on a free local port and wait for
+    them; a worker that fails, or outlives ``MP_TIMEOUT``, fails the run,
+    and both are stopped either way."""
+    import os
+
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", str(rank),
+                               str(port), outdir], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for rank in range(MP_PROCESSES)]
+    try:
+        for rank, proc in enumerate(procs):
+            stdout, stderr = proc.communicate(timeout=MP_TIMEOUT)
+            if proc.returncode != 0:
+                raise AssertionError(f"worker {rank} exited {proc.returncode}:\n"
+                                     f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def phase23():
+    """The engine across 2 processes of the card on gloo, 2 shards each:
+    every mode bit for bit one process at S = 4; then phase 24's checkpoint
+    from the same processes."""
+    import os
+    import shutil
+
+    import torch
+
+    from fastslam_tpu_torch.core.state import pad_measurements
+    from fastslam_tpu_torch.parallel import dryrun
+
+    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                          "chip_smoke_multiprocess")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    t0 = time.perf_counter()
+    run_workers(outdir)
+    wall = time.perf_counter() - t0
+    workers = [torch.load(os.path.join(outdir, f"worker_{r}.pt"), weights_only=False)
+               for r in range(MP_PROCESSES)]
+    cfg = sharded_config()
+    ms = pad_measurements(cfg, MEASUREMENTS, DEVICE)
+    ref = dryrun.run_steps(cfg, MP_PROCESSES * MP_SHARDS, DEVICE, ms, chunk=C, ticks=3,
+                           modes=MP_MODES)
+    launches = {}
+    for rank, w in enumerate(workers):
+        if w["backend"] != "gloo" or w["mesh"] != (rank, MP_PROCESSES, MP_PROCESSES * MP_SHARDS):
+            raise AssertionError(f"worker {rank}: backend {w['backend']}, mesh {w['mesh']}")
+        if "ROADMAP §1 item 5" not in (w["ring_refusal"] or ""):
+            raise AssertionError(f"worker {rank}: the ring resampler did not refuse the group")
+        if w["resamplers"] != {"healthy": {"ring_launches": 0, "halo_path": 1},
+                               "collapsed": {"ring_launches": 0, "halo_path": 0}}:
+            raise AssertionError(f"worker {rank}: halo resampler across processes "
+                                 f"{w['resamplers']}, expected the halo path, then the fallback")
+        for k, v in w["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    phase(23, f"{MP_PROCESSES} processes on the card ({workers[0]['info']}), gloo, "
+              f"{MP_SHARDS} shards each, P={P} L={L} M={M} C={C}: wall {wall:.2f} s for both "
+              f"(start, build load, phases 23-24); launches of both {launches}; the ring "
+              f"resampler refuses: {workers[0]['ring_refusal']}; the halo resampler across "
+              f"the processes equals resample_state bit for bit on healthy weights (halo "
+              f"path) and collapsed ones (fallback)")
+    for mode in MP_MODES:
+        layout, _, kernel = dryrun.MODES[mode]
+        want = {kernel: MP_SHARDS * (3 if layout in ("blocks", "planes") else 1)}
+        for rank, w in enumerate(workers):
+            got = w["modes"][mode]
+            if got["launches"] != want or got["local"] != MP_SHARDS:
+                raise AssertionError(f"{mode}, worker {rank}: launches {got['launches']}, "
+                                     f"expected {want}; {got['local']} local shards")
+            if not (torch.equal(got["est"], ref[mode]["est"].cpu())
+                    and got["digests"] == state_digests(ref[mode]["state"])):
+                raise AssertionError(f"{mode}, worker {rank}: differs from one process at "
+                                     f"S={MP_PROCESSES * MP_SHARDS}")
+        phase(23, f"{mode}: {want[kernel]} launches per process, estimates and the gathered "
+                  f"state the same in both processes and bit for bit one process at "
+                  f"S={MP_PROCESSES * MP_SHARDS}")
+    for tag in workers[0]["times"]:
+        phase(23, f"{tag}: " + "; ".join(
+            f"process {rank} {w['times'][tag]['ms_per_tick']:.3f} ms per tick, "
+            f"{w['times'][tag]['collective_ms_per_tick']:.3f} of it host time in collectives, "
+            f"{w['times'][tag]['bytes_per_tick'] / 1e6:.3f} MB per tick received through the "
+            f"group in {w['times'][tag]['calls_per_tick']:.2f} calls"
+            for rank, w in enumerate(workers)))
+    for mode in workers[0]["checkpoint"]:
+        for rank, w in enumerate(workers):
+            c = w["checkpoint"][mode]
+            if not c["same"]:
+                raise AssertionError(f"checkpoint of {mode}, worker {rank}: not bit for bit")
+        c = workers[0]["checkpoint"][mode]
+        phase(24, f"save_sharded_checkpoint of the {MP_PROCESSES}-process {mode} state: "
+                  f"{c['bytes'] / 1e6:.1f} MB on disk in {c['files']}; save "
+                  + " / ".join(f"{w['checkpoint'][mode]['save_s']:.3f}" for w in workers)
+                  + " s, load " + " / ".join(f"{w['checkpoint'][mode]['load_s']:.3f}"
+                                             for w in workers)
+                  + " s (process 0 / 1); both processes load it back bit for bit, with "
+                    "the generator")
+    return launches, workers
+
+
+
+
 def main() -> int:
     import torch
 
@@ -2349,6 +2740,8 @@ def main() -> int:
     errs["segment_sum"] = 0.0
     times["segment_sum"] = (cross["ms"], cross["plain_ms"], cross["library_ms"])
     bounds["segment_sum"] = cross["bound"]
+    paths["mesh2d"], _ = phase22()
+    paths["multiprocess"], _ = phase23()
 
     print(card)
     print(json.dumps({"kernels": [
@@ -2368,4 +2761,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        import os
+
+        code = mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        # torch's destructors at interpreter exit sometimes abort a gloo
+        # process ("terminate called without an active exception") after its
+        # work is done and written: a worker leaves without running them
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
     sys.exit(main())

@@ -76,7 +76,7 @@ class FastSLAMConfig:
     cluster_eps: float = 0.5              # clustering eps for intersections
     corner_threshold: float = 0.1         # corner-to-scan-point gate
 
-    # ---- corner identity tracking (not ported yet) ----
+    # ---- corner identity tracking (frontend/tracking.py) ----
     track_corners: bool = False
     track_capacity: int = 32
     track_gate: float = 0.4

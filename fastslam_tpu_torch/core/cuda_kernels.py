@@ -68,7 +68,6 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from fastslam_tpu_torch.config import FastSLAMConfig
-from fastslam_tpu_torch.core.state import FilterState, from_planes, to_planes
 
 LAUNCHES = {"fused_update_planes": 0, "fused_update_planes_multi": 0,
             "fused_fs2_planes": 0, "fused_fs2_planes_multi": 0,
@@ -1226,22 +1225,50 @@ def fused_update(poses, log_weights, lm_mean, lm_cov, lm_count, z, z_valid,
                  config: FastSLAMConfig):
     """One tick of measurement updates on the blocks layout: lm_mean
     ``[P, L, 2]``, lm_cov ``[P, L, 4]`` are transposed to ``[L, P]`` planes
-    for :func:`fused_update_planes` and back (``state.to_planes``,
-    ``from_planes``), with no padding.  On CUDA tensors that launches the
+    for :func:`fused_update_planes` and back, as ``state.to_planes`` and
+    ``from_planes`` do, with no padding.  On CUDA tensors that launches the
     per-tick kernel; on the CPU it runs the kernel's plain version.  In
     production the kernel keeps no ``cc`` plane and ``cov[..., 2]`` comes
     back equal to ``cov[..., 1]``.
 
+    ``lm_mean`` and ``lm_cov`` may also be sequences of slot blocks
+    ``[P, L_m, 2]`` and ``[P, L_m, 4]`` in slot order (the map shards of one
+    particle row of a 2-D mesh): each block's transpose is written into its
+    row range of the planes, so the tick runs once over all ``L`` slots, and
+    the result comes back as blocks of the same widths.
+
     Returns new ``(log_weights, lm_mean, lm_cov, lm_count)``; the inputs are
     not changed.
     """
-    planes = to_planes(FilterState(poses, log_weights, lm_mean, lm_cov, lm_count), config)
+    single = torch.is_tensor(lm_mean)
+    means, covs = ([lm_mean], [lm_cov]) if single else (list(lm_mean), list(lm_cov))
+    widths = [m.shape[1] for m in means]
+    comps = ((0, 0), (0, 1), (1, 0), (1, 1)) + (((1, 2),) if config.parity_mode else ()) \
+        + ((1, 3),)                                  # (mean or cov, component) per plane
+    planes = [torch.empty((sum(widths), poses.shape[0]), dtype=means[0].dtype,
+                          device=means[0].device) for _ in comps]
+    start = 0
+    for blocks in zip(means, covs):
+        w = blocks[0].shape[1]
+        for plane, (which, k) in zip(planes, comps):
+            plane[start:start + w].copy_(blocks[which][:, :, k].t())
+        start += w
+    mx, my, ca, cb, *rest = planes
+    cc, cd = rest if config.parity_mode else (None, rest[0])
     logw, mx, my, ca, cb, cc, cd, cnt = fused_update_planes(
-        planes.poses, planes.log_weights, planes.lm_mx, planes.lm_my, planes.lm_ca,
-        planes.lm_cb, planes.lm_cc, planes.lm_cd, planes.lm_count, z, z_valid, config)
-    new = from_planes(planes.replace(log_weights=logw, lm_mx=mx, lm_my=my, lm_ca=ca,
-                                     lm_cb=cb, lm_cc=cc, lm_cd=cd, lm_count=cnt))
-    return new.log_weights, new.lm_mean, new.lm_cov, new.lm_count
+        poses, log_weights.clone(), mx, my, ca, cb, cc, cd, lm_count.clone(), z, z_valid,
+        config)
+    cc = cb if cc is None else cc
+    new_means, new_covs, start = [], [], 0
+    for w in widths:
+        rows = slice(start, start + w)
+        new_means.append(torch.stack([mx[rows].t(), my[rows].t()], dim=-1))
+        new_covs.append(torch.stack([ca[rows].t(), cb[rows].t(), cc[rows].t(), cd[rows].t()],
+                                    dim=-1))
+        start += w
+    if single:
+        return logw, new_means[0], new_covs[0], cnt
+    return logw, new_means, new_covs, cnt
 
 
 def fused_update_planes_multi(poses, log_weights, lm_mx, lm_my, lm_ca, lm_cb,

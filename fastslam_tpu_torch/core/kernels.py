@@ -822,25 +822,39 @@ def fastslam2_propose(state: FilterState, rotation, translation,
 # blocks engine: the full step
 # ---------------------------------------------------------------------------
 
-def propose_and_update(state: FilterState, rotation, translation,
-                       measurements: Measurements, config: FastSLAMConfig,
-                       draws: Draws, proposal_floors=None,
-                       evidence_scale=None) -> FilterState:
-    """The per-particle half of :func:`fastslam_step`: sample the poses
-    (the motion model, or the FastSLAM 2.0 proposal under ``uses_fs2``)
-    and run the tick's measurements through the landmark EKF.  Every
-    particle is independent of the others, so a shard of the state runs it
-    on its own slice of ``draws``."""
+def propose(state: FilterState, rotation, translation, measurements: Measurements,
+            config: FastSLAMConfig, draws: Draws, proposal_floors=None,
+            evidence_scale=None) -> FilterState:
+    """Sample the poses: the motion model (which reads only the poses), or
+    the FastSLAM 2.0 proposal under ``uses_fs2`` (which reads the map and,
+    with ``fs2_evidence_weights``, sets the weights)."""
     if uses_fs2(config):
         fxy, fth = proposal_floors if proposal_floors is not None else (None, None)
         state, _ = fastslam2_propose(state, rotation, translation, measurements,
                                      draws.noise, config, fxy, fth, evidence_scale)
-        return update_particles(state, measurements, config,
-                                update_weights=not config.fs2_evidence_weights)
-    poses = propagate_particles(state.poses, rotation, translation,
-                                config.rotation_noise * draws.rot,
-                                config.translation_noise * draws.trans)
-    return update_particles(state.replace(poses=poses), measurements, config)
+        return state
+    return state.replace(poses=propagate_particles(
+        state.poses, rotation, translation, config.rotation_noise * draws.rot,
+        config.translation_noise * draws.trans))
+
+
+def ekf_weights(config: FastSLAMConfig) -> bool:
+    """Whether the landmark EKF pass sets the weights: always but under the
+    FastSLAM 2.0 proposal with ``fs2_evidence_weights``."""
+    return not (uses_fs2(config) and config.fs2_evidence_weights)
+
+
+def propose_and_update(state: FilterState, rotation, translation,
+                       measurements: Measurements, config: FastSLAMConfig,
+                       draws: Draws, proposal_floors=None,
+                       evidence_scale=None) -> FilterState:
+    """The per-particle half of :func:`fastslam_step`: :func:`propose`, then
+    the tick's measurements through the landmark EKF.  Every particle is
+    independent of the others, so a shard of the state runs it on its own
+    slice of ``draws``."""
+    state = propose(state, rotation, translation, measurements, config, draws,
+                    proposal_floors, evidence_scale)
+    return update_particles(state, measurements, config, update_weights=ekf_weights(config))
 
 
 def fastslam_step(state: FilterState, rotation, translation,

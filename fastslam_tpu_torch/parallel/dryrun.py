@@ -41,7 +41,7 @@ from fastslam_tpu_torch.core.state import (
     Measurements, init_planes_state, init_state, pad_measurements,
 )
 from fastslam_tpu_torch.parallel.mesh import (
-    make_map_mesh, make_mesh, shard_planes_state, shard_state, unshard,
+    ParticleMesh, make_map_mesh, make_mesh, shard_planes_state, shard_state, unshard,
 )
 from fastslam_tpu_torch.parallel.resample import (
     halo_systematic_resample, shard_ancestor_window,
@@ -83,19 +83,22 @@ def adaptive_dial(chunk: int, device) -> torch.Tensor:
 
 
 def run_mode(mode: str, config: FastSLAMConfig, n_shards: Optional[int], device,
-             measurements: Measurements, *, chunk: int, ticks: int, seed: int = 0):
+             measurements: Measurements, *, chunk: int, ticks: int, seed: int = 0,
+             mesh: Optional[ParticleMesh] = None):
     """One step of the dry run from a fresh state: ``ticks`` ticks (``chunk``
     ticks in one call for the chunked steps) on ``n_shards`` shards of
-    ``device``, or on the single-device step when ``n_shards`` is None, with
-    the same draws either way.  Returns ``(final state gathered, estimates
-    [ticks or chunk, 3], shards)``."""
+    ``device``, or on ``mesh`` (a 2-D mesh, or one across processes), or on
+    the single-device step when both are None, with the same draws either
+    way.  Returns ``(final state gathered, estimates [ticks or chunk, 3],
+    this process's shards)``."""
     layout, changes, _ = MODES[mode]
     cfg = config.replace(**changes)
     p = cfg.num_particles
     fs2 = kernels.uses_fs2(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     zero, step_len = torch.tensor(0.0, device=device), torch.tensor(0.4, device=device)
-    mesh = None if n_shards is None else make_mesh(cfg, [device] * n_shards)
+    if mesh is None and n_shards is not None:
+        mesh = make_mesh(cfg, [device] * n_shards)
     if layout == "blocks":
         state = init_state(cfg, device)
         step = (make_sharded_step(cfg, mesh) if mesh
@@ -132,19 +135,20 @@ def run_mode(mode: str, config: FastSLAMConfig, n_shards: Optional[int], device,
         state, e = step(state, *rows, kernels.draw(gen, p, chunk, fs2=fs2), *extra)
         est.append(e)
     shards = state if mesh else [state]
-    return (unshard(shards) if mesh else state), torch.stack(est).reshape(-1, 3), shards
+    return (unshard(shards, mesh) if mesh else state), torch.stack(est).reshape(-1, 3), shards
 
 
 def run_steps(config: FastSLAMConfig, n_shards: Optional[int], device,
               measurements: Measurements, *, chunk: int = 4, ticks: int = 3,
-              seed: int = 0, modes: Sequence[str] = tuple(MODES)) -> Dict[str, dict]:
+              seed: int = 0, modes: Sequence[str] = tuple(MODES),
+              mesh: Optional[ParticleMesh] = None) -> Dict[str, dict]:
     """Every step of the dry run (see :func:`run_mode`); per mode the final
     state, the estimates, the shards and the kernel launches it made."""
     out = {}
     for mode in modes:
         before = dict(cuda_kernels.LAUNCHES)
         state, est, shards = run_mode(mode, config, n_shards, device, measurements,
-                                      chunk=chunk, ticks=ticks, seed=seed)
+                                      chunk=chunk, ticks=ticks, seed=seed, mesh=mesh)
         out[mode] = {"state": state, "est": est, "shards": shards,
                      "launches": {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items()
                                   if v != before[k]}}
@@ -173,25 +177,31 @@ def resampler_state(config: FastSLAMConfig, device, profile: str, seed: int = 0)
         lm_count=torch.tensor(rng.integers(0, l + 1, p), dtype=torch.int32, device=device))
 
 
-def check_resamplers(config: FastSLAMConfig, n_shards: int, device, profile: str,
-                     u0: float, seed: int = 0) -> Dict[str, int]:
+def check_resamplers(config: FastSLAMConfig, n_shards: Optional[int], device, profile: str,
+                     u0: float, seed: int = 0, mesh: Optional[ParticleMesh] = None
+                     ) -> Dict[str, int]:
     """One forced resample of :func:`resampler_state` through both
-    distributed resamplers on ``n_shards`` shards; every field of each must
-    equal the single-device ``resample_state`` bit for bit.  Returns the
-    exchange kernel's launches, and whether the halo path was taken."""
+    distributed resamplers on ``n_shards`` shards (or on ``mesh``: across
+    processes only the halo resampler, the ring one refusing a group); every
+    field of each must equal the single-device ``resample_state`` bit for
+    bit.  Returns the exchange kernel's launches, and whether the halo path
+    was taken."""
     state = resampler_state(config, device, profile, seed)
     u0 = torch.tensor(u0, dtype=torch.float32, device=device)
     want = kernels.resample_state(
         state, kernels.systematic_resample_indices(torch.exp(state.log_weights), u0), config)
-    mesh = make_mesh(config, [device] * n_shards)
+    mesh = mesh or make_mesh(config, [device] * n_shards)
     use_halo = shard_ancestor_window(
-        [s.log_weights for s in shard_state(state, mesh, config)], u0)[2]
+        [s.log_weights for s in shard_state(state, mesh, config)], u0, mesh.group)[2]
     before = cuda_kernels.LAUNCHES["ring_halo_exchange"]
-    for name, resample in (("halo", halo_systematic_resample), ("ring", ring_halo_resample)):
+    resamplers = [("halo", halo_systematic_resample)]
+    if mesh.num_processes == 1:
+        resamplers.append(("ring", ring_halo_resample))
+    for name, resample in resamplers:
         shards = resample(shard_state(state, mesh, config), u0, mesh, config)
-        if len(shards) != n_shards:
+        if len(shards) != len(mesh.devices):
             raise AssertionError(f"{name} resampler returned {len(shards)} shards")
-        got = unshard(shards)
+        got = unshard(shards, mesh)
         for field in ("poses", "log_weights", "lm_mean", "lm_cov", "lm_count"):
             if not torch.equal(getattr(got, field), getattr(want, field)):
                 raise AssertionError(f"{name} resampler ({profile}): {field} differs from "

@@ -15,6 +15,13 @@ fixed-order cumulative sum), sliced to each shard, so both paths are
 bit-identical to ``resample_state`` with the same ``u0`` by construction.
 The halo-or-fallback choice is one integer :func:`psum`, read once on the
 host.
+
+Across a process group the weights are gathered over the group, the halos
+cross the process boundary through :func:`ppermute`'s point-to-point form,
+and the fallback gathers the whole state over the group, each process
+keeping its own shards.  On a 2-D mesh every map column (one slot block of
+every particle row) is resampled as a ring of its own: the ancestors depend
+on the weights only, so each slot block moves with its particles.
 """
 
 from __future__ import annotations
@@ -23,36 +30,42 @@ import math
 from typing import List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import kernels
 from fastslam_tpu_torch.core.state import FilterState
 from fastslam_tpu_torch.parallel.collectives import all_gather, ppermute, psum, shard_range
-from fastslam_tpu_torch.parallel.mesh import ParticleMesh
+from fastslam_tpu_torch.parallel.mesh import ParticleMesh, columns, from_columns
 
 _FIELDS = ("poses", "log_weights", "lm_mean", "lm_cov", "lm_count")
 
 
-def shard_ancestor_window(log_weights: Sequence[torch.Tensor], u0: torch.Tensor
+def shard_ancestor_window(log_weights: Sequence[torch.Tensor], u0: torch.Tensor,
+                          group=None
                           ) -> Tuple[List[torch.Tensor], List[torch.Tensor], bool]:
     """The ancestor-window math shared by the halo resampler and the ring
     resampler (``parallel/ring_resample.py``).
 
     Args:
-      log_weights: each shard's ``[P_local]`` log-weights, in shard order.
+      log_weights: each shard's ``[P_local]`` log-weights, in shard order
+        (this process's shards of a ring over ``group``).
       u0: the resample offset in ``[0, 1/P)``.
+      group: the process group the ring spans, or None.
 
     Returns ``(idx, safe_local, use_halo)``: per shard its ``[P_local]``
     global ancestor indices (for the fallback gather) and their positions in
     the ``[3 P_local]`` window (left | own | right), clipped; and whether
-    every shard's window fits (the same answer for all shards).
+    every shard's window fits (the same answer for all shards and
+    processes).
     """
-    s, p_local = len(log_weights), log_weights[0].shape[0]
-    weights = all_gather([torch.exp(lw) for lw in log_weights])        # [P]
+    p_local = log_weights[0].shape[0]
+    first = 0 if group is None else dist.get_rank(group) * len(log_weights)
+    weights = all_gather([torch.exp(lw) for lw in log_weights], group=group)   # [P]
     idx_all = kernels.systematic_resample_indices(weights, u0)
     idx, safe_local, outside = [], [], []
     for k, lw in enumerate(log_weights):
-        r = shard_range(k, p_local)
+        r = shard_range(first + k, p_local)
         i = idx_all[r].to(lw.device)
         local = i - (r.start - p_local)
         # a wrapped neighbour is never indexed: global indices lie in [0, P),
@@ -61,7 +74,7 @@ def shard_ancestor_window(log_weights: Sequence[torch.Tensor], u0: torch.Tensor
         outside.append((~((local >= 0) & (local < 3 * p_local)).all()).to(torch.int32))
         idx.append(i)
         safe_local.append(torch.clamp(local, 0, 3 * p_local - 1))
-    use_halo = int(psum(outside)) == 0
+    use_halo = int(psum(outside, group)) == 0
     return idx, safe_local, use_halo
 
 
@@ -93,22 +106,32 @@ def halo_systematic_resample(shards: Sequence[FilterState], u0: torch.Tensor,
                              mesh: ParticleMesh, config: FastSLAMConfig) -> List[FilterState]:
     """Resample the sharded state; the same result, shard by shard, as
     ``resample_state(state, systematic_resample_indices(...), config)`` on
-    the gathered state.  The halos move field by field with :func:`ppermute`."""
-    p = len(shards) * shards[0].num_particles
+    the gathered state.  The halos move field by field with :func:`ppermute`;
+    a 2-D mesh resamples map column by map column."""
+    cols = columns(shards, mesh)
+    devices = columns(mesh.devices, mesh)
+    p = mesh.particle_shards * shards[0].num_particles
+    out = [_halo_ring(col, u0, devs, mesh.group, p, config) for col, devs in zip(cols, devices)]
+    return from_columns(out, mesh)
+
+
+def _halo_ring(shards: Sequence[FilterState], u0: torch.Tensor, devices, group, p: int,
+               config: FastSLAMConfig) -> List[FilterState]:
+    """:func:`halo_systematic_resample` on one ring of shards."""
     idx, safe_local, use_halo = shard_ancestor_window(
-        [s.log_weights for s in shards], u0)
+        [s.log_weights for s in shards], u0, group)
     out = [{} for _ in shards]
     for name in _FIELDS:
         own = [getattr(s, name) for s in shards]
         if use_halo:
-            left = ppermute(own, 1, mesh.devices)
-            right = ppermute(own, -1, mesh.devices)
+            left = ppermute(own, 1, devices, group)
+            right = ppermute(own, -1, devices, group)
             for k in range(len(shards)):
                 window = torch.cat([left[k], own[k], right[k]])
                 out[k][name] = window.index_select(0, safe_local[k])
         else:
-            full = all_gather(own)
-            for k, dev in enumerate(mesh.devices):
+            full = all_gather(own, group=group)
+            for k, dev in enumerate(devices):
                 out[k][name] = full.index_select(0, idx[k].to(full.device)).to(dev)
     shards = [FilterState(**fields) for fields in out]
     if not config.parity_mode:

@@ -730,6 +730,37 @@ def test_sharded_engine_runs_through_the_kernels(device):
             assert (v is None and g is None) or torch.equal(g, v), (mode, k)
 
 
+def test_2d_mesh_runs_one_launch_per_particle_row(device):
+    """The blocks modes of the dry run on a 4 x 2 mesh of the card: one
+    per-tick launch per particle row per tick, every mode equal to the
+    single-device step bit for bit; and ``fused_update`` given a row's slot
+    blocks equals it given the whole blocks."""
+    from fastslam_tpu_torch.parallel import dryrun
+    from fastslam_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = FastSLAMConfig(num_particles=P - P % 4, max_landmarks=L, max_measurements=M,
+                         resample_threshold_frac=1.0)
+    ms = pad_measurements(cfg, [(1.5 + 0.4 * i, -2.0 + 0.6 * i) for i in range(6)], device)
+    modes = [m for m, (layout, _, _) in dryrun.MODES.items() if layout == "blocks"]
+    mesh = make_mesh(cfg, [device] * 8, map_parallelism=2)
+    got = dryrun.run_steps(cfg, None, device, ms, ticks=3, modes=modes, mesh=mesh)
+    want = dryrun.run_steps(cfg, None, device, ms, ticks=3, modes=modes)
+    for mode in modes:
+        assert got[mode]["launches"] == {"fused_update_planes": 4 * 3}, mode
+        assert torch.equal(got[mode]["est"], want[mode]["est"]), mode
+        for k, v in want[mode]["state"].__dict__.items():
+            assert torch.equal(getattr(got[mode]["state"], k), v), (mode, k)
+    s = got["blocks fs2"]["state"]
+    whole = cuda_kernels.fused_update(s.poses, s.log_weights, s.lm_mean, s.lm_cov, s.lm_count,
+                                      ms.range_bearing, ms.valid, cfg)
+    split = cuda_kernels.fused_update(s.poses, s.log_weights, s.lm_mean.split(4, 1),
+                                      s.lm_cov.split(4, 1), s.lm_count, ms.range_bearing,
+                                      ms.valid, cfg)
+    assert torch.equal(whole[0], split[0]) and torch.equal(whole[3], split[3])
+    assert torch.equal(whole[1], torch.cat(split[1], 1))
+    assert torch.equal(whole[2], torch.cat(split[2], 1))
+
+
 @pytest.mark.parametrize("l,p", [(64, 3001), (3, 2), (8, 1)])
 def test_copy_probe_matches_plain(device, l, p):
     """One launch over six planes and a row, equal to ``x + 1``: a plane

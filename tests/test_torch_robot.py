@@ -26,11 +26,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_exports_match_jax_and_build_no_kernel():
-    for name in ("run_driver", "HALDriver", "Robot", "EvaluationUtils", "Serializer"):
-        assert name in fastslam_tpu_torch.__all__ and name in fastslam_tpu.__all__, name
-        assert getattr(fastslam_tpu_torch, name).__module__.startswith("fastslam_tpu_torch")
-    # a fresh interpreter: the import loads no kernel library and no JAX
-    code = ("import sys, fastslam_tpu_torch\n"
+    # every name of the JAX package's surface, each from a module of the port
+    assert len(fastslam_tpu.__all__) == 23
+    assert set(fastslam_tpu_torch.__all__) == set(fastslam_tpu.__all__)
+    for name in fastslam_tpu.__all__:
+        obj = getattr(fastslam_tpu_torch, name)
+        assert obj.__module__.startswith("fastslam_tpu_torch."), (name, obj.__module__)
+        assert obj is not getattr(fastslam_tpu, name), name
+    # a fresh interpreter: importing every name loads no kernel library and no JAX
+    code = ("import sys\n"
+            f"from fastslam_tpu_torch import {', '.join(fastslam_tpu.__all__)}\n"
             "from fastslam_tpu_torch.core import _build\n"
             "assert _build.load.cache_info().currsize == 0\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'fastslam_tpu.'))\n"

@@ -38,7 +38,7 @@ from fastslam_tpu_torch.interop import (
 )
 from fastslam_tpu_torch.parallel import dryrun
 from fastslam_tpu_torch.parallel.mesh import (
-    make_mesh, shard_planes_state, shard_state, unshard,
+    make_mesh, planes_state_sharding, shard_planes_state, shard_state, unshard,
 )
 from fastslam_tpu_torch.parallel.sharded import (
     make_sharded_planes_chunked_step, make_sharded_planes_step, make_sharded_step,
@@ -115,9 +115,17 @@ def test_state_shards_on_particle_axis():
 
 
 def test_mesh_refuses_what_is_not_ported():
+    """Distinct devices in one process, parity mode in the chunked step, and
+    the planes layout on a 2-D mesh (as JAX's ``planes_state_sharding``)."""
     cfg = FastSLAMConfig()
-    with pytest.raises(NotImplementedError, match="map-axis mesh"):
-        make_mesh(cfg, ["cpu"] * 8, map_parallelism=2)
+    mesh2d = make_mesh(cfg, ["cpu"] * 8, map_parallelism=2)
+    assert mesh2d.shape == {"particles": 4, "map": 2}
+    for refused in (lambda: planes_state_sharding(mesh2d, 64),
+                    lambda: shard_planes_state(init_planes_state(cfg, "cpu"), mesh2d, cfg),
+                    lambda: make_sharded_planes_step(cfg, mesh2d),
+                    lambda: make_sharded_planes_chunked_step(cfg, mesh2d, 4)):
+        with pytest.raises(ValueError, match="1-D particle-axis mesh"):
+            refused()
     with pytest.raises(NotImplementedError, match="distinct devices"):
         make_mesh(cfg, ["cpu", "meta"])
     with pytest.raises(ValueError):
