@@ -144,10 +144,11 @@ Phases, one line each (or more):
     the Cholesky solve, back-substitution and the host error, and the peak
     device memory; the dry run's backend block on 4 shards; the segment-sum
     kernel against its plain version bit for bit at each of shard 0's four
-    sums of an iteration, timed beside its plain version, ``index_add_`` and
-    its bound.  (b) ``smooth_trajectory`` on phase 12's fused estimates,
-    greedy and tracked, each twice bit for bit, keyframe error before and
-    after.  (c) ``merge_sessions`` on two maps of 4,096 landmarks against
+    sums of an iteration, timed beside its plain version, ``index_add_`` in
+    float64 and in float32, and its bound (the kernels line gives each
+    call's under ``calls``).  (b) ``smooth_trajectory`` on phase 12's fused
+    estimates, greedy and tracked, each twice bit for bit, keyframe error
+    before and after.  (c) ``merge_sessions`` on two maps of 4,096 landmarks against
     the same call on the CPU: the transform within 1e-4, the same matches
     and masks, the ICP search's launches;
 22. the 2-D particle x map mesh: the blocks step on a 4 x 2 mesh of the card
@@ -1641,67 +1642,30 @@ def phase20(log, card):
 
 
 # phase 21: BASELINE config #5 (tests/test_backend_scale.py:157-215) at full
-# scale, cut to 4 GN iterations as its evidence run (eval_results/backend_1m.json)
-BACKEND_LANDMARKS, BACKEND_KEYFRAMES, BACKEND_ITERS, BACKEND_DAMPING = 1_100_000, 1024, 4, 1e-3
-BACKEND_GRAPH = dict(association_gate=0.5, max_landmarks=1 << 21, max_factors=1 << 23,
-                     obs_sigma_r=0.01, obs_sigma_b=1e-3, odo_sigma_xy=0.05,
-                     odo_sigma_theta=0.001)
+# scale (fastslam_tpu_torch/probes/segment_sum_turns.py builds it), cut to 4
+# GN iterations as its evidence run (eval_results/backend_1m.json)
+BACKEND_ITERS, BACKEND_DAMPING = 4, 1e-3
 BACKEND_SUMS = 4        # segment sums per shard per GN iteration (sparse path)
 MERGE_LANDMARKS = 4096  # per map in (c): the ICP search tiles its targets
 MERGE_TOL = 1e-4       # (c) card vs CPU
 
 
-def backend_graph():
-    """The 1.1M-landmark survey graph, and the host seconds of each stage."""
-    from fastslam_tpu_torch.backend.alignment import consensus_align
-    from fastslam_tpu_torch.backend.builder import build_pose_graph
-    from fastslam_tpu_torch.backend.survey import survey_world_chunked
-
-    t0 = time.perf_counter()
-    noisy, obs, gt, _ = survey_world_chunked(BACKEND_LANDMARKS, k=BACKEND_KEYFRAMES,
-                                             sigma_xy=0.05, seed=1)
-    t1 = time.perf_counter()
-    aligned, info = consensus_align(noisy, obs, sigma_xy=0.05, sigma_theta=0.001)
-    t2 = time.perf_counter()
-    g = build_pose_graph(noisy, obs, association_poses=aligned, device=DEVICE,
-                         **BACKEND_GRAPH)
-    t3 = time.perf_counter()
-    return g, gt, info, {"world": t1 - t0, "align": t2 - t1, "build": t3 - t2}
-
-
-def backend_segment_inputs(g, shards):
-    """Shard 0's four segment sums of one sparse GN iteration at this graph's
-    shapes: (name, columns, layout) with seeded values in the layout's
-    columns (by landmark 5, by keyframe 12, by keyframe cell 9, the
-    back-substitution 2)."""
-    import torch
-
-    from fastslam_tpu_torch.backend import distributed
-    from fastslam_tpu_torch.parallel.mesh import make_map_mesh
-
-    gs, _ = distributed.shard_pose_graph(g, shards)
-    pair_a, pair_b, pair_valid = distributed.build_schur_pairs(gs, shards, DEVICE)
-    layout = distributed.schur_layouts(
-        make_map_mesh([DEVICE] * shards), g.poses.shape[0], g.landmarks.shape[0],
-        gs.obs_kf, gs.obs_lm, gs.obs_valid, pair_a, pair_b, pair_valid)[0]
-    gen = torch.Generator(device=DEVICE).manual_seed(21)
-    f_local, cap = gs.obs_kf.shape[0] // shards, pair_a.shape[0] // shards
-    cols = lambda c, n: torch.randn((c, n), generator=gen, device=DEVICE)
-    return [("by_landmark", cols(5, f_local), layout.by_lm),
-            ("by_keyframe", cols(12, f_local), layout.by_kf),
-            ("cross", cols(9, cap), layout.by_cell),
-            ("backsub", cols(2, f_local), layout.by_lm)]
-
-
 def segment_sum_measure(inputs):
     """Each of the four sums: kernel against its plain version bit for bit;
-    then per call the kernel's, the plain version's and ``index_add_``'s
-    time (CUDA events) and the bound: the values and order entries of the
-    segments' entries and the offsets read once, the sums written once,
-    over 3.35 TB/s (one add per value: the bytes bound it)."""
+    then per call the kernel's and two library calls' device times (20
+    calls in a replayed CUDA graph: ``replay_ms``), the kernel's time per
+    eager call and the plain version's (CUDA events), and the bound: the
+    values and order entries of the segments' entries and the offsets read
+    once (4 bytes each), the float64 sums written once (8 bytes each), over
+    3.35 TB/s (one add per value: the bytes bound it).  The library calls: ``index_add_`` of the float32
+    values (another precision, float32 atomics) and ``index_add_`` of
+    ``values.double()`` (the same float64 function, its atomics in an order
+    that varies), each into a ``torch.zeros``; the max difference of each
+    from the plain sums."""
     import torch
 
     from fastslam_tpu_torch.core import cuda_kernels
+    from fastslam_tpu_torch.probes.segment_sum_turns import replay_ms
 
     rows = {}
     for name, values, layout in inputs:
@@ -1717,15 +1681,19 @@ def segment_sum_measure(inputs):
             torch.arange(s, device=DEVICE), (layout.offsets[1:] - layout.offsets[:-1]).long(),
             output_size=entries)
         library = lambda: torch.zeros((c, s + 1), device=DEVICE).index_add_(1, key, values)
-        lib = library()[:, :s]
-        lib_err = float((lib - want).abs().max()) if entries else 0.0
-        nbytes = 4 * (c * entries + entries + s + 1 + c * s)
+        library64 = lambda: torch.zeros((c, s + 1), dtype=torch.float64,
+                                        device=DEVICE).index_add_(1, key, values.double())
+        lib_err = lambda fn: float((fn()[:, :s] - want).abs().max()) if entries else 0.0
+        nbytes = 4 * (c * entries + entries + s + 1) + 8 * c * s
+        kernel = lambda: cuda_kernels.segment_sum(values, layout)
         rows[name] = {
-            "ms": time_ms(lambda: cuda_kernels.segment_sum(values, layout), 20),
+            "ms": replay_ms(kernel, 20), "eager_ms": time_ms(kernel, 20),
             "plain_ms": time_ms(lambda: cuda_kernels.segment_sum_ref(values, layout), 3),
-            "library_ms": time_ms(library, 20),
+            "library_ms": replay_ms(library64, 20), "library_f32_ms": replay_ms(library, 20),
             "bound": bound_ms(nbytes, c * entries),
-            "columns": c, "segments": s, "entries": entries, "library_err": lib_err}
+            "columns": c, "segments": s, "entries": entries,
+            "long_segments": int(layout.long[0]),
+            "library_err": lib_err(library64), "library_f32_err": lib_err(library)}
     return rows
 
 
@@ -1749,16 +1717,20 @@ def phase21_config5(card):
     from fastslam_tpu_torch.parallel.mesh import make_map_mesh
     from fastslam_tpu_torch.utils.profiling import EventMarks
 
-    g, gt, ainfo, host_s = backend_graph()
+    from fastslam_tpu_torch.probes.segment_sum_turns import (
+        CONFIG5_KEYFRAMES, CONFIG5_LANDMARKS, config5_graph, config5_sums,
+    )
+
+    g, gt, ainfo, host_s = config5_graph(DEVICE)
     n_lm, n_f = int(g.lm_valid.sum()), int(g.obs_valid.sum())
-    if abs(n_lm - BACKEND_LANDMARKS) > 0.03 * BACKEND_LANDMARKS:
-        raise AssertionError(f"config #5: {n_lm} landmarks built for {BACKEND_LANDMARKS}")
+    if abs(n_lm - CONFIG5_LANDMARKS) > 0.03 * CONFIG5_LANDMARKS:
+        raise AssertionError(f"config #5: {n_lm} landmarks built for {CONFIG5_LANDMARKS}")
     gs, dropped = distributed.shard_pose_graph(g, SHARDS)
     if dropped:
         raise AssertionError(f"config #5: {dropped} factors dropped at {SHARDS} shards")
     err0 = distributed.total_error_host(gs.poses, gs.landmarks[:, 0], gs.landmarks[:, 1], gs)
-    phase(21, f"config #5 graph: {n_lm} landmarks ({BACKEND_LANDMARKS} placed), {n_f} "
-              f"factors, K={BACKEND_KEYFRAMES}, capacities {g.landmarks.shape[0]} / "
+    phase(21, f"config #5 graph: {n_lm} landmarks ({CONFIG5_LANDMARKS} placed), {n_f} "
+              f"factors, K={CONFIG5_KEYFRAMES}, capacities {g.landmarks.shape[0]} / "
               f"{g.obs_kf.shape[0]}, no factor dropped at {SHARDS} shards; host seconds: "
               f"world {host_s['world']:.2f}, consensus align {host_s['align']:.2f} "
               f"({ainfo['n_registered_pairs']} pairs registered), build {host_s['build']:.2f}")
@@ -1811,13 +1783,17 @@ def phase21_config5(card):
     dry = dryrun.dryrun_backend(SHARDS, DEVICE)
     phase(21, f"dryrun_backend on {SHARDS} shards of the card: error {dry['err']:.6e}, "
               f"launches {dry['launches']}")
-    rows = segment_sum_measure(backend_segment_inputs(g, SHARDS))
+    rows = segment_sum_measure(config5_sums(g, SHARDS, DEVICE))
     for name, r in rows.items():
         phase(21, f"segment_sum {name} (shard 0 of {SHARDS}: {r['columns']} columns, "
-                  f"{r['entries']} entries, {r['segments']} segments): kernel {r['ms']:.4f} "
-                  f"ms, plain {r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms "
-                  f"(max diff {r['library_err']:.3e}), bound {r['bound'][0]:.4f} ms "
-                  f"({r['bound'][1]}); bit for bit the plain version")
+                  f"{r['entries']} entries, {r['segments']} segments, {r['long_segments']} "
+                  f"of them long): kernel {r['ms']:.4f} ms (eager calls {r['eager_ms']:.4f}), "
+                  f"plain {r['plain_ms']:.4f} ms, "
+                  f"index_add_ float64 {r['library_ms']:.4f} ms (max diff "
+                  f"{r['library_err']:.3e}), float32 {r['library_f32_ms']:.4f} ms (max diff "
+                  f"{r['library_f32_err']:.3e}), bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]}; {100 * r['bound'][0] / r['ms']:.1f} %); bit for bit the "
+                  f"plain version")
     return launches, rows
 
 
@@ -2753,6 +2729,11 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": times[name][2]}
         | ({"onchip_bound_ms": onchip} if name == "mul_add" else {})
+        | ({"library_f32_ms": cross["library_f32_ms"], "calls": {
+            call: {"ms": r["ms"], "eager_ms": r["eager_ms"], "bound_ms": r["bound"][0],
+                   "plain_ms": r["plain_ms"],
+                   "library_ms": r["library_ms"], "library_f32_ms": r["library_f32_ms"]}
+            for call, r in seg_rows.items()}} if name == "segment_sum" else {})
         for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,7 +51,7 @@ _SIGNATURES = {
     "hbm_copy_launch": [_I] + [_P] * 2 + [_I] * 2 + [_P],
     "mul_add_launch": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "fma_chain_launch": [_I] + [_P] * 2 + [_I] * 2 + [_P],
-    "segment_sum_launch": [_I] + [_P] * 4 + [_I] * 3 + [_P],
+    "segment_sum_launch": [_I] + [_P] * 5 + [_I] * 3 + [_P],
 }
 
 

@@ -1663,38 +1663,56 @@ def icp_rotation_sin_cos(x):
 # deterministic segment sums (the pose-graph backend)
 # ---------------------------------------------------------------------------
 
-# lanes of a warp: one warp sums one segment (csrc/segment_sum.cu)
+# lanes of a warp, whose order the sums follow (csrc/segment_sum.cu)
 SEGMENT_LANES = 32
+# the most entries of a segment that one lane of the kernel sums (SHORT_MAX);
+# a longer one is a warp's per column (csrc/segment_sum.cu)
+SHORT_SEGMENT = 8
 
 
 class Segments(NamedTuple):
     """A CSR segment layout: segment ``s`` owns entries ``offsets[s]`` ..
     ``offsets[s + 1] - 1`` of ``perm``, each the index of a value within a
     column.  ``perm`` int32 ``[n]`` (entries past ``offsets[-1]`` are
-    unused), ``offsets`` int32 ``[S + 1]``."""
+    unused), ``offsets`` int32 ``[S + 1]``, ``long`` int32 ``[S + 1]`` or
+    None: :func:`long_segments` of ``offsets``, which :func:`segment_sum`
+    builds on each call where it is None."""
 
     perm: torch.Tensor
     offsets: torch.Tensor
+    long: Optional[torch.Tensor] = None
 
     @property
     def num_segments(self) -> int:
         return self.offsets.shape[0] - 1
 
 
+def long_segments(offsets: torch.Tensor) -> torch.Tensor:
+    """int32 ``[S + 1]``: the number of segments of more than
+    :data:`SHORT_SEGMENT` entries, then their ids in order (the rest of the
+    tensor the other segments' ids).  The kernel hands each of them to a
+    warp per column.  Torch ops only, with no host sync."""
+    counts = offsets[1:] - offsets[:-1]
+    is_long = counts > SHORT_SEGMENT
+    order = torch.sort((~is_long).to(torch.uint8), stable=True).indices
+    return torch.cat([is_long.sum().reshape(1), order]).to(torch.int32)
+
+
 def segment_layout(index: torch.Tensor, valid: Optional[torch.Tensor],
                    num_segments: int) -> Segments:
     """The layout that groups the entries ``i`` with ``valid[i]`` by
     ``index[i]`` in ``[0, num_segments)``, each segment's entries in index
-    order (a stable sort); invalid entries belong to no segment.  Torch ops
-    only, on the device of ``index``, with no host sync: a graph builds it
-    once and sums through it every iteration."""
+    order (a stable sort); invalid entries belong to no segment; with its
+    :func:`long_segments`.  Torch ops only, on the device of ``index``, with
+    no host sync: a graph builds it once and sums through it every
+    iteration."""
     key = index.long()
     if valid is not None:
         key = torch.where(valid, key, num_segments)
     sorted_key, order = torch.sort(key, stable=True)
     bounds = torch.arange(num_segments + 1, dtype=torch.int64, device=index.device)
-    offsets = torch.searchsorted(sorted_key, bounds)
-    return Segments(order.to(torch.int32), offsets.to(torch.int32))
+    offsets = torch.searchsorted(sorted_key, bounds).to(torch.int32)
+    return Segments(order.to(torch.int32), offsets, long_segments(offsets))
 
 
 def segment_sum_ref(values: torch.Tensor, segments: Segments) -> torch.Tensor:
@@ -1738,13 +1756,15 @@ def _check_segment_inputs(values, segments: Segments):
     if values.dim() != 2 or values.dtype != torch.float32:
         raise ValueError(f"segment_sum takes float32 [C, n] values, got {values.dtype} "
                          f"{tuple(values.shape)}")
-    perm, offsets = segments
+    perm, offsets, long = segments
     if perm.dtype != torch.int32 or offsets.dtype != torch.int32 or perm.dim() != 1 \
             or offsets.dim() != 1 or offsets.shape[0] < 1:
         raise ValueError("a segment layout is int32 perm [n] and int32 offsets [S + 1]")
+    if long is not None and (long.dtype != torch.int32 or long.shape != offsets.shape):
+        raise ValueError("a layout's long segments are int32 [S + 1]")
     if perm.shape[0] > values.shape[1]:
         raise ValueError(f"{perm.shape[0]} layout entries for columns of {values.shape[1]}")
-    if perm.device != values.device or offsets.device != values.device:
+    if any(t is not None and t.device != values.device for t in segments):
         raise ValueError("values and layout must be on one device")
     if values.numel() >= 2 ** 31 or offsets.shape[0] >= 2 ** 31:
         raise ValueError("segment_sum takes fewer than 2^31 values and segments")
@@ -1762,7 +1782,8 @@ def segment_sum(values: torch.Tensor, segments: Segments) -> torch.Tensor:
     Returns float64 ``[C, S]`` (or ``[S]``): column ``c``'s sum over each
     segment, accumulated in float64, 0.0 for an empty one; the same bits on
     every run and equal to :func:`segment_sum_ref` bit for bit.  On CUDA one
-    launch of ``segment_sum_kernel``.
+    launch of ``segment_sum_kernel``, which writes every sum (no fill), and
+    no host sync.
     """
     squeeze = values.dim() == 1
     values = values[None] if squeeze else values
@@ -1770,14 +1791,15 @@ def segment_sum(values: torch.Tensor, segments: Segments) -> torch.Tensor:
         out = segment_sum_ref(values, segments)
         return out[0] if squeeze else out
     _check_segment_inputs(values, segments)
-    device = _require_cuda(values, *segments)
+    long = segments.long if segments.long is not None else long_segments(segments.offsets)
+    device = _require_cuda(values, segments.perm, segments.offsets, long)
     from fastslam_tpu_torch.core import _build
 
     c, n = values.shape
     s = segments.num_segments
-    out = torch.zeros((c, s), dtype=torch.float64, device=device)   # empty segments
+    out = torch.empty((c, s), dtype=torch.float64, device=device)
     _launch(_build.load().segment_sum_launch, device, _ptr(values), _ptr(segments.perm),
-            _ptr(segments.offsets), _ptr(out), ctypes.c_int(c), ctypes.c_int(n),
+            _ptr(segments.offsets), _ptr(long), _ptr(out), ctypes.c_int(c), ctypes.c_int(n),
             ctypes.c_int(s))
     LAUNCHES["segment_sum"] += 1
     return out[0] if squeeze else out

@@ -915,6 +915,96 @@ def test_segment_sum_refuses_bad_inputs(device):
         cuda_kernels.segment_sum(values[:, ::2], layout)        # not contiguous
 
 
+SWEEP_LENGTHS = list(range(71)) + [1000, 50_000]
+
+
+def sweep_case(kind, columns, device, seed=0):
+    """(values [columns, n], layout) on ``device``: ``lengths`` every
+    segment length 0-70, 1,000 and 50,000 in one layout, entries
+    interleaved at random, values of mixed magnitudes with signed zeros and
+    a few infinities; ``signed_zeros`` the same lengths, values from
+    {-0.0, +0.0, 1.5, -1.5} (sums that cancel to zero exactly) and all -0.0;
+    ``identity`` the same lengths in entry order, a perm of ``arange``;
+    ``hand_built`` the identity layout as perm and offsets alone (the
+    wrapper lists its long segments)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.permutation(SWEEP_LENGTHS)
+    n = int(lengths.sum())
+    if kind == "signed_zeros":
+        vals = rng.choice([-0.0, 0.0, 1.5, -1.5], (columns, n))
+        vals[0] = -0.0
+    else:
+        vals = rng.normal(0, 1, (columns, n)) * rng.choice([1e-3, 1.0, 1e3], (columns, n))
+        vals = np.where(rng.random((columns, n)) < 0.02, -0.0, vals)
+        vals = np.where(rng.random((columns, n)) < 0.001, np.inf, vals)
+    values = torch.tensor(vals, dtype=torch.float32, device=device)
+    if kind in ("identity", "hand_built"):
+        offsets = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int32,
+                               device=device)
+        perm = torch.arange(n, dtype=torch.int32, device=device)
+        layout = cuda_kernels.Segments(perm, offsets)
+        if kind == "identity":
+            layout = layout._replace(long=cuda_kernels.long_segments(offsets))
+        return values, layout
+    index = rng.permutation(np.repeat(np.arange(len(lengths)), lengths))
+    return values, cuda_kernels.segment_layout(torch.tensor(index, device=device), None,
+                                               len(lengths))
+
+
+def backend_shape_case(call, device):
+    """Shard 0 of 4's segment sums of one sparse GN iteration (chip_smoke.py
+    phase 21) on a 20,000-landmark survey graph of 64 keyframes: (values,
+    layout) with seeded values in the call's columns."""
+    from fastslam_tpu_torch.backend import builder, distributed
+    from fastslam_tpu_torch.backend.survey import survey_world_chunked
+    from fastslam_tpu_torch.parallel.mesh import make_map_mesh
+
+    noisy, obs, gt, _ = survey_world_chunked(20_000, k=64, sigma_xy=0.05, seed=1)
+    g = builder.build_pose_graph(noisy, obs, association_poses=gt, association_gate=0.5,
+                                 max_landmarks=1 << 15, max_factors=1 << 17, device=device)
+    gs, _ = distributed.shard_pose_graph(g, 4)
+    pair_a, pair_b, pair_valid = distributed.build_schur_pairs(gs, 4, device)
+    layouts = distributed.schur_layouts(make_map_mesh([device] * 4), g.poses.shape[0],
+                                        g.landmarks.shape[0], gs.obs_kf, gs.obs_lm,
+                                        gs.obs_valid, pair_a, pair_b, pair_valid)[0]
+    columns, n, layout = {
+        "by_landmark": (5, gs.obs_kf.shape[0] // 4, layouts.by_lm),
+        "by_keyframe": (12, gs.obs_kf.shape[0] // 4, layouts.by_kf),
+        "cross": (9, pair_a.shape[0] // 4, layouts.by_cell),
+        "backsub": (2, gs.obs_kf.shape[0] // 4, layouts.by_lm)}[call]
+    gen = torch.Generator(device=device).manual_seed(21)
+    return torch.randn((columns, n), generator=gen, device=device), layout
+
+
+def assert_segment_sum_bit_for_bit(values, layout):
+    """Two kernel calls, one launch each, equal to the plain version and to
+    each other bit for bit (the sign of zero and NaNs included)."""
+    before = cuda_kernels.LAUNCHES["segment_sum"]
+    got = cuda_kernels.segment_sum(values, layout)
+    assert cuda_kernels.LAUNCHES["segment_sum"] == before + 1
+    again = cuda_kernels.segment_sum(values, layout)
+    assert cuda_kernels.LAUNCHES["segment_sum"] == before + 2
+    want = cuda_kernels.segment_sum_ref(values, layout)
+    bits = lambda t: t.view(torch.int64)
+    assert torch.equal(bits(got), bits(want)) and torch.equal(bits(again), bits(got))
+    return want
+
+
+@pytest.mark.parametrize("columns", [1, 2, 5, 9, 12, 16])
+@pytest.mark.parametrize("kind", ["lengths", "signed_zeros", "identity", "hand_built"])
+def test_segment_sum_kernel_sweeps_lengths(device, kind, columns):
+    values, layout = sweep_case(kind, columns, device)
+    want = assert_segment_sum_bit_for_bit(values, layout)
+    if kind == "signed_zeros":
+        assert not torch.signbit(want[0]).any()          # sums of -0.0 are +0.0
+
+
+@pytest.mark.parametrize("call", ["by_landmark", "by_keyframe", "cross", "backsub"])
+def test_segment_sum_kernel_on_backend_shapes(device, call):
+    values, layout = backend_shape_case(call, device)
+    assert_segment_sum_bit_for_bit(values, layout)
+
+
 def test_backend_on_the_card_matches_cpu_and_repeats(device):
     """The sparse sharded optimizer and the dense single-device one on the
     card against the CPU (the plain segment sums), and a second card run
