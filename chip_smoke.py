@@ -172,7 +172,17 @@ Phases, one line each (or more):
 24. the sharded checkpoint: both processes save their blocks and planes
     states of phase 23 with ``save_sharded_checkpoint`` and load them into
     fresh templates, bit for bit with the generator; seconds to save and to
-    load, bytes on disk.  A worker that fails fails the run.
+    load, bytes on disk.  A worker that fails fails the run;
+25. the accuracy matrix's scale section on the card
+    (``fastslam_tpu_torch.eval.suite.section_scale``) at seed 3, rng 0, on
+    ``make_log``'s drive (start (-0.35, 0, 0), range noise 0.005): all 13
+    rows, P up to 100,000, L=64, each ATE beside the JAX suite's seed-3
+    value in ``eval_results/scale.json`` and the kernels each row launched;
+    every clean production row below the oracle row, the fs2 + adaptive row
+    under slip below the slip oracle row (the motion-only slip row is
+    printed, not gated), and ``production chunked C=16 (N=100k, H100)`` run
+    twice more with the same estimates bit for bit; the phase's wall time
+    and launches (the ``accuracy`` path of the kernels line).
 
 Any failure raises.  The card's name and power limit come on the line
 before the kernels' JSON summary (launches of each main path's first run
@@ -2631,6 +2641,92 @@ def phase23():
 
 
 
+# phase 25: the accuracy matrix's scale section (fastslam_tpu_torch/eval/suite.py)
+# at seed 3 and rng 0 on the card, beside the JAX suite's seed-3 values
+ACCURACY_REPEAT = "production chunked C=16 (N=100k, H100)"
+ACCURACY_SLIP_GATED = "production+fs2+adaptive chunked C=8 (N=100k, H100, wheel slip)"
+# the per-tick rows and chunk tails, the chunked rows, the adaptive rows' ICP stage
+ACCURACY_KERNELS = {"fused_update_planes", "fused_update_planes_multi", "fused_fs2_planes",
+                    "fused_fs2_planes_multi", "icp_point_to_line"}
+
+
+def phase25(card):
+    """``suite.section_scale`` at seed 3, rng 0: all 13 rows at full width,
+    each production row gated by its table's oracle row, and one row run
+    again bit for bit."""
+    import os
+
+    import numpy as np
+
+    from fastslam_tpu_torch.eval import suite
+    from fastslam_tpu_torch.eval.metrics import ate_rmse
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "eval_results", "scale.json")) as f:
+        jax_blob = json.load(f)
+    jax_seed3 = {k: v[jax_blob["seeds"].index(3)] for k, v in jax_blob["rows"].items()}
+    args = suite.parse_args(["--seeds", "3", "--rngs", "0", "--device", DEVICE])
+
+    def run():
+        _, table = suite.section_scale(args)
+        log, gt = suite.make_log(3, args.ticks)
+        again = [suite.run_estimates(log, dict(num_particles=P, parity_mode=False),
+                                     chunked=True, chunk_size=16, device=DEVICE)
+                 for _ in range(2)]
+        return table, gt, again
+
+    (table, gt, again), launches, wall = zeroed_run(run)
+    rows = {name: v[0][0] for name, v in table.rows.items()}
+    if len(rows) != 13 or not all(np.isfinite(v) for v in rows.values()):
+        raise AssertionError(f"scale section at seed 3: {rows}")
+    for name, ate in rows.items():
+        ran = {k: n for k, n in table.launches[name].items() if n}
+        phase(25, f"{name}: ATE {ate:.4f} m (JAX seed 3: "
+                  f"{jax_seed3[name.replace('H100', 'TPU')]:.4f}); launches {ran or 'none'}")
+    oracle, slip_oracle = (name for name in rows if name.startswith("reference"))
+    names = list(rows)
+    clean = [n for n in names[names.index(oracle) + 1:names.index(slip_oracle)]
+             if n.startswith("production")]
+    above = {n: rows[n] for n in clean if not rows[n] < rows[oracle]}
+    if len(clean) != 9 or above:
+        raise AssertionError(f"clean production rows at or above the oracle's "
+                             f"{rows[oracle]:.4f} m: {above} ({len(clean)} clean rows)")
+    if not rows[ACCURACY_SLIP_GATED] < rows[slip_oracle]:
+        raise AssertionError(f"{ACCURACY_SLIP_GATED}: {rows[ACCURACY_SLIP_GATED]:.4f} m, not "
+                             f"below the slip oracle's {rows[slip_oracle]:.4f} m")
+    repeat_ate = ate_rmse(gt[:, :2], again[0][:, :2])
+    if not (np.array_equal(again[0], again[1]) and repeat_ate == rows[ACCURACY_REPEAT]):
+        raise AssertionError(f"{ACCURACY_REPEAT}: a second run does not repeat its estimates "
+                             f"(ATE {repeat_ate} against {rows[ACCURACY_REPEAT]})")
+    ran = {k for k, n in launches.items() if n}
+    if not ran >= ACCURACY_KERNELS:
+        raise AssertionError(f"the scale section launched {sorted(ran)}, not every kernel "
+                             f"of {sorted(ACCURACY_KERNELS)}")
+    phase(25, f"scale section at seed 3, rng 0 on {card}: the {len(clean)} clean production "
+              f"rows {min(rows[n] for n in clean):.4f}-{max(rows[n] for n in clean):.4f} m, "
+              f"all below the oracle's {rows[oracle]:.4f}; fs2+adaptive under slip "
+              f"{rows[ACCURACY_SLIP_GATED]:.4f} below the slip oracle's "
+              f"{rows[slip_oracle]:.4f} (motion-only under slip, not gated: "
+              f"{rows['production chunked C=8 (N=100k, H100, wheel slip)']:.4f}); "
+              f"{ACCURACY_REPEAT} run twice more, the same estimates bit for bit; wall "
+              f"{wall:.1f} s; launches {launches}")
+    # the same row on phase 4's drive (start (0, 0, 0), no range noise) and on
+    # make_log's seed-3 start without range noise: which of the two sets the
+    # gap between phase 4's ATE and this row's
+    from fastslam_tpu_torch.drivers.replay import record_log
+    from fastslam_tpu_torch.drivers.sim_world import SimWorld
+
+    for label, log in (
+            ("phase 4's drive", record_log(SimWorld(seed=3), num_ticks=300)),
+            ("make_log's seed-3 start, no range noise",
+             suite.make_log(3, args.ticks, range_noise_std=0.0)[0])):
+        gt = suite.start_frame(log.gt_poses)
+        ates = [suite.run_mode(log, gt, dict(num_particles=P, parity_mode=False), chunked=True,
+                               chunk_size=16, rng=rng, device=DEVICE) for rng in (0, 1, 2)]
+        phase(25, f"{ACCURACY_REPEAT} on {label}: ATE at rngs 0, 1, 2 "
+                  + ", ".join(f"{a:.4f}" for a in ates) + " m (not gated)")
+    return launches
+
 
 def main() -> int:
     import torch
@@ -2718,6 +2814,7 @@ def main() -> int:
     bounds["segment_sum"] = cross["bound"]
     paths["mesh2d"], _ = phase22()
     paths["multiprocess"], _ = phase23()
+    paths["accuracy"] = phase25(card)
 
     print(card)
     print(json.dumps({"kernels": [
