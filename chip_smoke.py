@@ -165,10 +165,17 @@ Phases, one line each (or more):
     fs2), forced resamples through the whole-state gather and the halo
     resampler; each process launches its kernel once per local shard per
     tick or chunk; both processes' estimates and gathered states bit for
-    bit one process at S=4; the ring resampler refuses the group; ms per
-    tick of each process (blocks step with no resample, with the
-    whole-state gather, with the halo resampler; the chunked step), the host
-    ms of it in collectives and the bytes received through the group;
+    bit one process at S=4; ms per tick of each process (blocks step with no
+    resample, with the whole-state gather, with the halo resampler; the
+    chunked step), the host ms of it in collectives and the bytes received
+    through the group.  Then the ring resampler across the two processes:
+    on healthy weights (the halo path) and collapsed ones (the fallback),
+    with the counters set to 0 just before, it and the halo resampler equal
+    ``resample_state`` bit for bit, with one launch of the exchange
+    kernel's cross-process form per process per call; 20 consecutive
+    exchanges on new blocks each equal the plain exchange (``ppermute``
+    over gloo) bit for bit; ms per call of the kernel and the plain
+    exchange, and of the ring and the halo resampler, in turns;
 24. the sharded checkpoint: both processes save their blocks and planes
     states of phase 23 with ``save_sharded_checkpoint`` and load them into
     fresh templates, bit for bit with the generator; seconds to save and to
@@ -182,7 +189,15 @@ Phases, one line each (or more):
     under slip below the slip oracle row (the motion-only slip row is
     printed, not gated), and ``production chunked C=16 (N=100k, H100)`` run
     twice more with the same estimates bit for bit; the phase's wall time
-    and launches (the ``accuracy`` path of the kernels line).
+    and launches (the ``accuracy`` path of the kernels line);
+26. the ring across four processes, one shard each, so that every
+    neighbour is another process: ``probes/check_ring_resample.py``'s
+    ``run`` at P=100,000, L=64 (four gloo processes on the card): the ring
+    resampler against ``resample_state`` on both weight profiles, bit for
+    bit, one launch of the cross-process kernel per process per call
+    (counters set to 0 just before); 20 exchanges against the plain
+    exchange bit for bit; ms per exchange and per resample of the kernel
+    and of gloo in turns, beside phase 23's.
 
 Any failure raises.  The card's name and power limit come on the line
 before the kernels' JSON summary (launches of each main path's first run
@@ -222,6 +237,9 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                           "fastslam_tpu/core/pallas_kernels.py:1901"),
     "ring_halo_exchange": ("fastslam_tpu_torch/csrc/ring_halo.cu",
                            "fastslam_tpu/parallel/ring_resample.py:106"),
+    # the same TPU kernel across processes: its barrier and remote writes
+    "ring_halo_exchange_peers": ("fastslam_tpu_torch/csrc/ring_halo.cu",
+                                 "fastslam_tpu/parallel/ring_resample.py:106"),
     "hbm_copy": ("fastslam_tpu_torch/csrc/probes.cu", "scripts/bench_hbm_floor.py:47"),
     "mul_add": ("fastslam_tpu_torch/csrc/probes.cu", "scripts/bench_vpu_roofline.py:112"),
     "fma_chain": ("fastslam_tpu_torch/csrc/probes.cu", "scripts/bench_vpu_roofline.py:115"),
@@ -235,6 +253,7 @@ FS2 = ("fused_fs2_planes", "fused_fs2_planes_multi")
 ICP = "icp_correspondences"
 FUSED_ICP = "icp_point_to_line"
 RING = "ring_halo_exchange"
+PEERS = "ring_halo_exchange_peers"
 PROBES = ("hbm_copy", "mul_add", "fma_chain")
 PROBE_TILE, PROBE_PASSES = 256, 256
 # the fs2 kernels' launch geometries timed in phase 9: (particles per tile,
@@ -1945,7 +1964,7 @@ def phase14():
         out = dryrun.check_resamplers(cfg, SHARDS, DEVICE, profile, u0, seed=14)
         torch.cuda.synchronize()
         want_halo = int(profile == "healthy")
-        if out != {"ring_launches": 1, "halo_path": want_halo}:
+        if out != {"ring_launches": 1, "peer_launches": 0, "halo_path": want_halo}:
             raise AssertionError(f"resamplers ({profile}): {out}, expected one exchange "
                                  f"launch and halo path {want_halo}")
         phase(14, f"{profile} weights, S={SHARDS}, P={P}, L={L}: ring (exchange kernel, "
@@ -2283,6 +2302,9 @@ BLOCKS_MODES = ("blocks motion parity", "blocks motion production", "blocks fs2"
 MP_PROCESSES, MP_SHARDS = 2, 2   # phase 23: processes on the card, shards in each
 MP_MODES = BLOCKS_MODES + ("planes fs2", "chunked motion", "chunked fs2")
 MP_TIMEOUT = 600     # seconds for the two processes of phases 23-24
+RING_EXCHANGES = 20  # phases 23 and 26: exchanges each against the plain one
+RING_REPS = 10       # calls per timed turn of the exchanges and resamplers
+RING_PROCESSES = 4   # phase 26: processes of one shard each
 
 
 def mesh2d_times(mesh2d):
@@ -2483,18 +2505,21 @@ def mp_checkpoint(results, mesh, outdir):
 def mp_worker(rank: int, port: int, outdir: str) -> int:
     """One of phase 23's processes: gloo on the card, 2 shards of the
     4-shard mesh; the main path's modes with the counters zeroed just before,
-    their estimates and the digests of their gathered states, the ring
-    resampler's refusal, the tick times and phase 24's checkpoint."""
+    their estimates and the digests of their gathered states, the tick
+    times, phase 24's checkpoint, then both resamplers across the processes
+    (counters zeroed just before), the exchanges against the plain one and
+    their times."""
     import os
 
     import torch
     import torch.distributed as dist
 
+    from fastslam_tpu_torch.core import cuda_kernels
     from fastslam_tpu_torch.core.state import pad_measurements
     from fastslam_tpu_torch.parallel import dryrun
     from fastslam_tpu_torch.parallel.mesh import make_mesh
     from fastslam_tpu_torch.parallel.multihost import initialize_distributed
-    from fastslam_tpu_torch.parallel.ring_resample import ring_halo_resample
+    from fastslam_tpu_torch.probes import check_ring_resample
 
     if not torch.cuda.is_available():
         print("chip_smoke worker: no CUDA device", file=sys.stderr)
@@ -2510,18 +2535,16 @@ def mp_worker(rank: int, port: int, outdir: str) -> int:
            "modes": {m: {"est": r["est"].cpu(), "digests": state_digests(r["state"]),
                          "launches": r["launches"], "local": len(r["shards"])}
                      for m, r in results.items()}}
-    try:
-        ring_halo_resample(results["blocks motion production"]["shards"],
-                           torch.tensor(0.0, device=DEVICE), mesh, cfg)
-        out["ring_refusal"] = None
-    except NotImplementedError as e:
-        out["ring_refusal"] = str(e)
-    # the halo resampler across the processes: its halo path and its fallback
-    out["resamplers"] = {profile: dryrun.check_resamplers(cfg, None, DEVICE, profile, 0.0042,
-                                                          seed=14, mesh=mesh)
-                         for profile in ("healthy", "collapsed")}
     out["times"] = mp_tick_times(cfg, mesh, ms)
     out["checkpoint"] = mp_checkpoint(results, mesh, outdir)
+    # both resamplers across the processes, on the halo path and the fallback
+    out["resamplers"], out["ring_launches"], _ = zeroed_run(lambda: {
+        profile: dryrun.check_resamplers(cfg, None, DEVICE, profile, 0.0042, seed=14, mesh=mesh)
+        for profile in ("healthy", "collapsed")})
+    device = torch.device(DEVICE, torch.cuda.current_device())
+    out["exchange"] = check_ring_resample.check_exchanges(cfg, mesh, device, RING_EXCHANGES)
+    out["ring_times"] = check_ring_resample.times(cfg, mesh, device, RING_REPS)
+    cuda_kernels.close_peer_rings(mesh.group)
     torch.save(out, os.path.join(outdir, f"worker_{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -2588,20 +2611,11 @@ def phase23():
     for rank, w in enumerate(workers):
         if w["backend"] != "gloo" or w["mesh"] != (rank, MP_PROCESSES, MP_PROCESSES * MP_SHARDS):
             raise AssertionError(f"worker {rank}: backend {w['backend']}, mesh {w['mesh']}")
-        if "ROADMAP §1 item 5" not in (w["ring_refusal"] or ""):
-            raise AssertionError(f"worker {rank}: the ring resampler did not refuse the group")
-        if w["resamplers"] != {"healthy": {"ring_launches": 0, "halo_path": 1},
-                               "collapsed": {"ring_launches": 0, "halo_path": 0}}:
-            raise AssertionError(f"worker {rank}: halo resampler across processes "
-                                 f"{w['resamplers']}, expected the halo path, then the fallback")
         for k, v in w["launches"].items():
             launches[k] = launches.get(k, 0) + v
     phase(23, f"{MP_PROCESSES} processes on the card ({workers[0]['info']}), gloo, "
               f"{MP_SHARDS} shards each, P={P} L={L} M={M} C={C}: wall {wall:.2f} s for both "
-              f"(start, build load, phases 23-24); launches of both {launches}; the ring "
-              f"resampler refuses: {workers[0]['ring_refusal']}; the halo resampler across "
-              f"the processes equals resample_state bit for bit on healthy weights (halo "
-              f"path) and collapsed ones (fallback)")
+              f"(start, build load, phases 23-24); launches of both {launches}")
     for mode in MP_MODES:
         layout, _, kernel = dryrun.MODES[mode]
         want = {kernel: MP_SHARDS * (3 if layout in ("blocks", "planes") else 1)}
@@ -2637,7 +2651,81 @@ def phase23():
                                              for w in workers)
                   + " s (process 0 / 1); both processes load it back bit for bit, with "
                     "the generator")
-    return launches, workers
+    ring = check_ring_workers(workers)
+    return launches, ring, workers
+
+
+def check_ring_workers(workers):
+    """Phase 23's ring across the processes: both resamplers bit for bit
+    with one launch of the cross-process kernel per process per call, the
+    exchanges bit for bit; returns the launches of both processes' resample
+    run and the exchanges' largest difference."""
+    want = {"healthy": {"ring_launches": 0, "peer_launches": 1, "halo_path": 1},
+            "collapsed": {"ring_launches": 0, "peer_launches": 1, "halo_path": 0}}
+    launches = {}
+    for rank, w in enumerate(workers):
+        if w["resamplers"] != want:
+            raise AssertionError(f"worker {rank}: resamplers across processes "
+                                 f"{w['resamplers']}, expected {want}")
+        expected = {k: 0 for k in w["ring_launches"]} | {PEERS: 2}
+        if w["ring_launches"] != expected:
+            raise AssertionError(f"worker {rank}: resample launches {w['ring_launches']}, "
+                                 f"expected {expected}")
+        ex = w["exchange"]
+        if not ex["equal"] or ex["max_abs_err"] or ex["launches"] != RING_EXCHANGES:
+            raise AssertionError(f"worker {rank}: exchanges against the plain one {ex}")
+        for k, v in w["ring_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    phase(23, f"ring_halo_resample across {MP_PROCESSES} processes x {MP_SHARDS} shards, "
+              f"P={P} L={L}: it and the halo resampler equal resample_state bit for bit on "
+              f"healthy weights (halo path) and collapsed ones (fallback), "
+              f"{want['healthy']['peer_launches']} launch of {PEERS} per process per call; "
+              f"{RING_EXCHANGES} exchanges on new blocks each equal to the plain exchange bit "
+              f"for bit in both processes, max abs err "
+              f"{max(w['exchange']['max_abs_err'] for w in workers)}")
+    for rank, w in enumerate(workers):
+        t = w["ring_times"]
+        phase(23, f"process {rank}: ms per call in turns, {RING_REPS} calls each: exchange "
+                  f"kernel {' / '.join(f'{x:.3f}' for x in t['kernel'])}, plain (gloo) "
+                  f"{' / '.join(f'{x:.3f}' for x in t['plain'])}; ring_halo_resample "
+                  f"{' / '.join(f'{x:.3f}' for x in t['ring'])}, halo resampler (gloo) "
+                  f"{' / '.join(f'{x:.3f}' for x in t['halo'])}")
+    return launches, max(w["exchange"]["max_abs_err"] for w in workers)
+
+
+def phase26(mp_workers):
+    """The ring across four processes of one shard each: every neighbour in
+    another process.  Returns the launches of the processes' resample run
+    (summed), the exchanges' largest difference and the times."""
+    from fastslam_tpu_torch.probes import check_ring_resample
+
+    t0 = time.perf_counter()
+    out = check_ring_resample.run(RING_PROCESSES, 1, P, L, DEVICE, RING_EXCHANGES, RING_REPS,
+                                  timeout=MP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if not out["ok"]:
+        raise AssertionError(f"ring across {RING_PROCESSES} processes: {out}")
+    launches = {}
+    for per_process in out["launches"]:
+        if per_process != {k: 0 for k in per_process} | {PEERS: 2}:
+            raise AssertionError(f"ring across {RING_PROCESSES} processes: resample launches "
+                                 f"{per_process}, expected 2 of {PEERS}")
+        for k, v in per_process.items():
+            launches[k] = launches.get(k, 0) + v
+    phase(26, f"ring_halo_resample across {RING_PROCESSES} processes x 1 shard, P={P} L={L} "
+              f"(wall {wall:.2f} s): equal to resample_state bit for bit, healthy and "
+              f"collapsed, one launch of {PEERS} per process per call; {RING_EXCHANGES} "
+              f"exchanges each equal to the plain exchange bit for bit (max abs err "
+              f"{out['exchange']['max_abs_err']})")
+    span = lambda xs: f"{min(xs):.3f}-{max(xs):.3f}"
+    times = {k: [x for t in out["times"] for x in t[k]] for k in out["times"][0]}
+    before = {k: [x for w in mp_workers for x in w["ring_times"][k]] for k in times}
+    phase(26, f"ms per call over the {RING_PROCESSES} processes, in turns: exchange kernel "
+              f"{span(times['kernel'])} (phase 23, 2 x 2: {span(before['kernel'])}), plain "
+              f"(gloo) {span(times['plain'])} ({span(before['plain'])}); ring_halo_resample "
+              f"{span(times['ring'])} ({span(before['ring'])}), halo resampler (gloo) "
+              f"{span(times['halo'])} ({span(before['halo'])})")
+    return launches, out["exchange"]["max_abs_err"], times
 
 
 
@@ -2813,8 +2901,16 @@ def main() -> int:
     times["segment_sum"] = (cross["ms"], cross["plain_ms"], cross["library_ms"])
     bounds["segment_sum"] = cross["bound"]
     paths["mesh2d"], _ = phase22()
-    paths["multiprocess"], _ = phase23()
+    paths["multiprocess"], (paths["multiprocess_ring"], errs[PEERS]), mp_workers = phase23()
     paths["accuracy"] = phase25(card)
+    paths["ring_4x1"], err_4x1, times_4x1 = phase26(mp_workers)
+    errs[PEERS] = max(errs[PEERS], err_4x1)
+    # the cross-process exchange: phase 23's times (2 x 2, process 0, the
+    # mean of the two turns), no library call (NCCL takes no two ranks on one
+    # card); the bound is the whole ring's bytes on the one card
+    t23 = mp_workers[0]["ring_times"]
+    times[PEERS] = (sum(t23["kernel"]) / 2, sum(t23["plain"]) / 2, None)
+    bounds[PEERS] = bound_ms(3 * P * (3 + 1 + 6 * L + 1) * 4, 0)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -2826,6 +2922,9 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": times[name][2]}
         | ({"onchip_bound_ms": onchip} if name == "mul_add" else {})
+        | ({"ms_4x1": sum(times_4x1["kernel"]) / len(times_4x1["kernel"]),
+            "plain_ms_4x1": sum(times_4x1["plain"]) / len(times_4x1["plain"])}
+           if name == PEERS else {})
         | ({"library_f32_ms": cross["library_f32_ms"], "calls": {
             call: {"ms": r["ms"], "eager_ms": r["eager_ms"], "bound_ms": r["bound"][0],
                    "plain_ms": r["plain_ms"],

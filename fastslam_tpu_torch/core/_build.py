@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "fused_update_planes_launch": [_I] + [_P] * 14 + [_I] * 4
     + [_F, _I, _F, _F, _F, _I, _I, _P],
@@ -48,6 +49,12 @@ _SIGNATURES = {
     "icp_point_to_line_launch": [_I] + [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
     "icp_sin_cos_launch": [_I] + [_P] * 3 + [_I, _P],
     "ring_halo_exchange_launch": [_I] + [_P] * 3 + [_I] * 2 + [_P],
+    "ring_halo_exchange_peers_launch": [_I] + [_P] * 5 + [_I] * 2 + [_LL] * 2 + [_P],
+    "ring_peers_alloc": [_I, _LL, _P, _P],
+    "ring_peers_open": [_I, _P, _P],
+    "ring_peers_close": [_I, _P],
+    "ring_peers_free": [_I, _P],
+    "ring_peers_error": [_I, _P, _P, _P],
     "hbm_copy_launch": [_I] + [_P] * 2 + [_I] * 2 + [_P],
     "mul_add_launch": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "fma_chain_launch": [_I] + [_P] * 2 + [_I] * 2 + [_P],

@@ -18,6 +18,10 @@ Counterpart of ``fastslam_tpu/core/pallas_kernels.py``:
 * the ring halo exchange of the distributed resampler
   (:func:`ring_halo_exchange`, ``csrc/ring_halo.cu``): every shard's packed
   particle block to both ring neighbours, for a ring of shards on one card;
+  and its cross-process form (:func:`ring_halo_exchange_peers`, same file)
+  for a ring over the processes of a group: each process writes into its
+  neighbour processes' receive buffers through CUDA IPC mappings
+  (:class:`PeerRing`), behind a neighbour barrier on flags in device memory;
 * the ceiling probes of the card (``csrc/probes.cu``), which the probe
   entry points of :mod:`fastslam_tpu_torch.probes` time: the device-memory
   copy over the fused update's buffer set (:func:`hbm_copy`), the
@@ -63,7 +67,7 @@ from __future__ import annotations
 import ctypes
 import math
 import struct
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -72,7 +76,7 @@ from fastslam_tpu_torch.config import FastSLAMConfig
 LAUNCHES = {"fused_update_planes": 0, "fused_update_planes_multi": 0,
             "fused_fs2_planes": 0, "fused_fs2_planes_multi": 0,
             "icp_correspondences": 0, "icp_point_to_line": 0, "icp_sin_cos": 0,
-            "ring_halo_exchange": 0, "hbm_copy": 0, "mul_add": 0, "fma_chain": 0,
+            "ring_halo_exchange": 0, "ring_halo_exchange_peers": 0, "hbm_copy": 0, "mul_add": 0, "fma_chain": 0,
             "segment_sum": 0}
 
 _LOG_TWO_PI = math.log(2.0 * math.pi)
@@ -87,6 +91,15 @@ _INVALID_KEY = 0x7F8000FF
 _STATIC_SMEM_BYTES = 64
 # the most shards one exchange launch takes (csrc/ring_halo.cu RING_MAX_SHARDS)
 RING_MAX_SHARDS = 64
+# the cross-process exchange (csrc/ring_halo.cu PeerFlag): the 64-bit words at
+# the head of each process's allocation, the bytes kept for them, the
+# alignment of each receive buffer after them, and how long one of the
+# kernel's waits may spin before it gives up
+PEER_FLAGS = ("ready_from_left", "ready_from_right", "delivered_from_left",
+              "delivered_from_right", "blocks_done", "error")
+PEER_FLAG_BYTES = 256
+PEER_ALIGN = 256
+PEER_TIMEOUT_S = 30.0
 # the copy probe's buffers (six [L, P] planes and one [1, P] row) and the
 # floats one of its blocks moves per buffer (256 threads x float4)
 HBM_COPY_BUFFERS = 7
@@ -830,6 +843,18 @@ def ring_halo_exchange_ref(blocks):
     return lefts, rights
 
 
+def ring_halo_exchange_peers_ref(blocks, group):
+    """Plain version of :func:`ring_halo_exchange_peers` (same contract): two
+    ring shifts of ``parallel/collectives.py:ppermute`` over ``group``, the
+    blocks bound for another process sent point to point through the
+    group's backend (with ``group=None``, the shards of this process)."""
+    from fastslam_tpu_torch.parallel.collectives import ppermute
+
+    _check_ring_blocks(blocks)
+    devices = [b.device for b in blocks]
+    return ppermute(blocks, 1, devices, group), ppermute(blocks, -1, devices, group)
+
+
 # ---------------------------------------------------------------------------
 # plain versions: the ceiling probes
 # ---------------------------------------------------------------------------
@@ -1481,15 +1506,10 @@ def ring_halo_exchange(blocks):
         return ring_halo_exchange_ref(blocks)
     _check_ring_blocks(blocks)
     device = _require_cuda(*blocks)
-    s, n = len(blocks), blocks[0].numel()
-    if s > RING_MAX_SHARDS:
-        raise ValueError(f"one exchange takes at most {RING_MAX_SHARDS} shards, got {s}")
-    if n >= 2 ** 31:
-        raise ValueError(f"a block of {n} floats is too large for one exchange")
-    if any(b.data_ptr() % 16 for b in blocks):
-        raise ValueError("the exchange kernel takes blocks aligned to 16 bytes")
+    _check_exchange_blocks(blocks)
     from fastslam_tpu_torch.core import _build
 
+    s, n = len(blocks), blocks[0].numel()
     lefts = [torch.empty_like(b) for b in blocks]
     rights = [torch.empty_like(b) for b in blocks]
     pointers = lambda ts: (ctypes.c_void_p * s)(*(t.data_ptr() for t in ts))
@@ -1501,6 +1521,253 @@ def ring_halo_exchange(blocks):
     )
     LAUNCHES["ring_halo_exchange"] += 1
     return lefts, rights
+
+
+def _check_exchange_blocks(blocks):
+    s, n = len(blocks), blocks[0].numel()
+    if s > RING_MAX_SHARDS:
+        raise ValueError(f"one exchange takes at most {RING_MAX_SHARDS} shards, got {s}")
+    if n >= 2 ** 31:
+        raise ValueError(f"a block of {n} floats is too large for one exchange")
+    if any(b.data_ptr() % 16 for b in blocks):
+        raise ValueError("the exchange kernel takes blocks aligned to 16 bytes")
+
+
+class PeerRoute(NamedTuple):
+    """Where one write of the cross-process exchange lands: the process (its
+    rank in the group), its local shard and the receive buffer."""
+
+    rank: int
+    local: int
+    buffer: str     # "left" or "right"
+
+
+def ring_peer_routes(rank: int, world: int, n_local: int) -> List[Tuple[PeerRoute, PeerRoute]]:
+    """For each of process ``rank``'s ``n_local`` shards (global shard
+    ``g = rank * n_local + k``), its block's two writes: into the left
+    buffer of shard ``g + 1`` and into the right buffer of shard ``g - 1``,
+    mod the ring's ``world * n_local`` shards, as ``ppermute`` by +1 and -1
+    routes them."""
+    n = world * n_local
+    out = []
+    for k in range(n_local):
+        g = rank * n_local + k
+        to_left, to_right = (g + 1) % n, (g - 1) % n
+        out.append((PeerRoute(to_left // n_local, to_left % n_local, "left"),
+                    PeerRoute(to_right // n_local, to_right % n_local, "right")))
+    return out
+
+
+def ring_peer_signals(rank: int, world: int) -> Tuple[Tuple[int, int], ...]:
+    """The four flag words process ``rank`` stores into, as ``(process,
+    word)``: ready into its right neighbour process (that one's
+    ``ready_from_left``) and into its left one, then delivered likewise.
+    With two processes both neighbours are the one other process, whose
+    words still tell the two directions apart."""
+    right, left = (rank + 1) % world, (rank - 1) % world
+    word = PEER_FLAGS.index
+    return ((right, word("ready_from_left")), (left, word("ready_from_right")),
+            (right, word("delivered_from_left")), (left, word("delivered_from_right")))
+
+
+def ring_peer_offset(local: int, buffer: str, block_bytes: int) -> int:
+    """Byte offset of local shard ``local``'s ``buffer`` (``"left"`` or
+    ``"right"``) in a process's allocation: the flag region, then each local
+    shard's left and right buffers, each starting on ``PEER_ALIGN`` bytes.
+    ``ring_peer_offset(n_local, "left", ...)`` is the allocation's size."""
+    stride = -(-block_bytes // PEER_ALIGN) * PEER_ALIGN
+    return PEER_FLAG_BYTES + (2 * local + (buffer == "right")) * stride
+
+
+class _DeviceArray:
+    """Float32 device memory that ``torch.as_tensor`` wraps without a copy,
+    through the CUDA array interface."""
+
+    def __init__(self, ptr: int, shape):
+        self.__cuda_array_interface__ = {"shape": tuple(shape), "typestr": "<f4",
+                                         "data": (ptr, False), "version": 2}
+
+
+class PeerRing:
+    """The buffers and flags of one ring of :func:`ring_halo_exchange_peers`.
+
+    Made once per (group, device, local shards, block shape), a collective
+    over ``group``: this process allocates its flag region and the left and
+    right receive buffer of each local shard in one ``cudaMalloc``
+    (``csrc/ring_halo.cu:ring_peers_alloc``; an IPC handle covers a whole
+    allocation, so not through torch's caching allocator), the 64-byte IPC
+    handles are all-gathered over the group as a uint8 tensor, and each
+    neighbour process's allocation is mapped (``ring_peers_open``).  A
+    failed open raises in every process.  It holds the pointer tables of the
+    launch (where each local block goes, the four flag words this process
+    signals), the call count (``epoch``), and the receive buffers as tensors
+    (``lefts``, ``rights``), which stay valid until :meth:`close`."""
+
+    def __init__(self, group, device: torch.device, n_local: int, shape):
+        import torch.distributed as dist
+
+        from fastslam_tpu_torch.core import _build
+        from fastslam_tpu_torch.parallel.collectives import all_gather
+
+        self.group, self.device = group, device
+        self.rank, self.world = dist.get_rank(group), dist.get_world_size(group)
+        self.epoch, self.failed = 0, None
+        self.mapped: Dict[int, int] = {}
+        lib = _build.load()
+        nbytes = math.prod(shape) * 4
+        base, handle = ctypes.c_void_p(), (ctypes.c_ubyte * 64)()
+        self._call(lib.ring_peers_alloc, ctypes.c_longlong(ring_peer_offset(n_local, "left", nbytes)),
+                   ctypes.c_void_p(ctypes.addressof(base)),
+                   ctypes.c_void_p(ctypes.addressof(handle)))
+        self.base = base.value
+        handles = all_gather([torch.tensor(list(bytes(handle)), dtype=torch.uint8)],
+                             group=group).view(self.world, 64)
+        error = None
+        for peer in sorted({(self.rank - 1) % self.world, (self.rank + 1) % self.world}
+                           - {self.rank}):
+            theirs = (ctypes.c_ubyte * 64)(*handles[peer].tolist())
+            ptr = ctypes.c_void_p()
+            rc = lib.ring_peers_open(self._index, ctypes.c_void_p(ctypes.addressof(theirs)),
+                                     ctypes.c_void_p(ctypes.addressof(ptr)))
+            if rc:
+                error = (f"process {self.rank} could not map process {peer}'s ring buffers "
+                         f"(cudaIpcOpenMemHandle): {_build.error_string(rc)}")
+                break
+            self.mapped[peer] = ptr.value
+        errors = [None] * self.world
+        dist.all_gather_object(errors, error, group=group)
+        if any(errors):
+            self.close()
+            raise RuntimeError("; ".join(e for e in errors if e))
+        bases = {self.rank: self.base, **self.mapped}
+        routes = ring_peer_routes(self.rank, self.world, n_local)
+        table = lambda ptrs: (ctypes.c_void_p * len(ptrs))(*ptrs)
+        self.to_left = table([bases[r.rank] + ring_peer_offset(r.local, r.buffer, nbytes)
+                              for r, _ in routes])
+        self.to_right = table([bases[r.rank] + ring_peer_offset(r.local, r.buffer, nbytes)
+                               for _, r in routes])
+        self.signal = table([bases[p] + 8 * w for p, w in ring_peer_signals(self.rank,
+                                                                             self.world)])
+        buffer = lambda k, side: torch.as_tensor(
+            _DeviceArray(self.base + ring_peer_offset(k, side, nbytes), shape), device=device)
+        self.lefts = [buffer(k, "left") for k in range(n_local)]
+        self.rights = [buffer(k, "right") for k in range(n_local)]
+
+    @property
+    def _index(self) -> ctypes.c_int:
+        return ctypes.c_int(self.device.index)
+
+    def _call(self, fn, *args):
+        from fastslam_tpu_torch.core import _build
+
+        rc = fn(self._index, *args)
+        if rc:
+            raise RuntimeError(f"{fn.__name__} failed: {_build.error_string(rc)}")
+
+    def check(self) -> None:
+        """Wait for the last exchange and raise if one of its waits timed
+        out (the kernel's error word); the ring is then refused from here
+        on."""
+        from fastslam_tpu_torch.core import _build
+
+        word = ctypes.c_longlong()
+        self._call(_build.load().ring_peers_error, ctypes.c_void_p(self.base),
+                   ctypes.c_void_p(ctypes.addressof(word)),
+                   ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream))
+        if word.value:
+            wait = {1: "ready", 2: "delivered"}.get(word.value & 3, "?")
+            self.failed = (f"process {self.rank} of {self.world}: the wait for the neighbours' "
+                           f"{wait} flags of call {word.value >> 2} timed out after "
+                           f"{PEER_TIMEOUT_S:g} s")
+            raise RuntimeError(f"cross-process ring exchange: {self.failed}")
+
+    def close(self) -> None:
+        """Unmap the neighbours' buffers and free this process's: a
+        collective over the group, after every process's last exchange."""
+        import torch.distributed as dist
+
+        from fastslam_tpu_torch.core import _build
+
+        lib = _build.load()
+        torch.cuda.synchronize(self.device)
+        dist.barrier(group=self.group)      # no process still runs an exchange
+        for ptr in self.mapped.values():
+            self._call(lib.ring_peers_close, ctypes.c_void_p(ptr))
+        dist.barrier(group=self.group)      # no process still maps my allocation
+        self._call(lib.ring_peers_free, ctypes.c_void_p(self.base))
+        self.mapped, self.lefts, self.rights = {}, [], []
+        self.failed = "closed"
+
+
+_PEER_RINGS: Dict[tuple, PeerRing] = {}
+
+
+def peer_ring(group, device: torch.device, n_local: int, shape) -> PeerRing:
+    """The cached :class:`PeerRing` of ``group`` for ``n_local`` blocks of
+    ``shape`` on ``device``, made at first use (a collective: every process
+    reaches it at the same call)."""
+    key = (group, device, n_local, tuple(shape))
+    ring = _PEER_RINGS.get(key)
+    if ring is None:
+        ring = _PEER_RINGS[key] = PeerRing(group, device, n_local, shape)
+    if ring.failed:
+        raise RuntimeError(f"cross-process ring exchange: this ring failed earlier: "
+                           f"{ring.failed}")
+    return ring
+
+
+def close_peer_rings(group=None) -> None:
+    """Free the cached rings over ``group`` (every group's with None), in
+    the order they were made.  A collective: every process of each group
+    calls it, before the group is destroyed."""
+    for key in [k for k in _PEER_RINGS if group is None or k[0] is group]:
+        _PEER_RINGS.pop(key).close()
+
+
+def ring_halo_exchange_peers(blocks, group):
+    """Every shard's block to both ring neighbours, for a ring over the
+    processes of ``group``: one launch per process per call.
+
+    Args:
+      blocks: this process's S_local float32 ``[P_local, D]`` blocks, in
+        ring order, contiguous and on one device; the ring's global shards
+        are every process's blocks in rank order.  Every process passes as
+        many blocks of one shape, and calls this in the same order.
+      group: the ``torch.distributed`` process group of the ring.
+
+    Returns ``(lefts, rights)`` as :func:`ring_halo_exchange`: ``lefts[k]``
+    the block of global shard ``g - 1`` and ``rights[k]`` that of shard
+    ``g + 1`` (mod S), for ``g`` local shard ``k``'s global index.  On the
+    card they are the ring's receive buffers (:class:`PeerRing`): valid
+    until the next exchange on the same ring, so the caller consumes them
+    before that.  A failed map, launch or timed-out wait raises.
+    """
+    blocks = list(blocks)
+    if blocks and blocks[0].device.type == "cpu":
+        return ring_halo_exchange_peers_ref(blocks, group)
+    _check_ring_blocks(blocks)
+    device = _require_cuda(*blocks)
+    _check_exchange_blocks(blocks)
+    from fastslam_tpu_torch.core import _build
+
+    s, n = len(blocks), blocks[0].numel()
+    ring = peer_ring(group, device, s, tuple(blocks[0].shape))
+    src = (ctypes.c_void_p * s)(*(b.data_ptr() for b in blocks))
+    ring.epoch += 1
+    try:
+        _launch(
+            _build.load().ring_halo_exchange_peers_launch, device,
+            *(ctypes.c_void_p(ctypes.addressof(a))
+              for a in (src, ring.to_left, ring.to_right, ring.signal)),
+            ctypes.c_void_p(ring.base), ctypes.c_int(s), ctypes.c_int(n),
+            ctypes.c_longlong(ring.epoch), ctypes.c_longlong(int(PEER_TIMEOUT_S * 1e9)),
+        )
+    except RuntimeError as e:
+        ring.failed = str(e)
+        raise
+    LAUNCHES["ring_halo_exchange_peers"] += 1
+    ring.check()
+    return list(ring.lefts), list(ring.rights)
 
 
 def _check_launch_size(tensors):

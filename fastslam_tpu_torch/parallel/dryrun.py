@@ -12,9 +12,11 @@ Counterpart of the JAX package's multi-chip dry run
   0.002 and the mode dial ``[1, 0.5, 0, ...]``);
 * one forced resample through ``halo_systematic_resample`` and through
   ``ring_halo_resample``, each bit-identical to the single-device
-  ``resample_state``.  On CUDA the ring resampler runs the exchange kernel;
-  the JAX dry run substituted its ppermute exchange only because the CPU
-  cannot lower remote DMAs.
+  ``resample_state``.  On CUDA the ring resampler runs the exchange kernel
+  (its cross-process form when the mesh spans a process group, as
+  :func:`check_resamplers` is given by ``chip_smoke.py``'s processes); the
+  JAX dry run substituted its ppermute exchange only because the CPU cannot
+  lower remote DMAs.
 
 The JAX dry run's distributed pose-graph backend block is
 :func:`dryrun_backend`: 8 keyframes, 3 landmarks, ``optimize_sharded`` on a
@@ -181,11 +183,12 @@ def check_resamplers(config: FastSLAMConfig, n_shards: Optional[int], device, pr
                      u0: float, seed: int = 0, mesh: Optional[ParticleMesh] = None
                      ) -> Dict[str, int]:
     """One forced resample of :func:`resampler_state` through both
-    distributed resamplers on ``n_shards`` shards (or on ``mesh``: across
-    processes only the halo resampler, the ring one refusing a group); every
-    field of each must equal the single-device ``resample_state`` bit for
-    bit.  Returns the exchange kernel's launches, and whether the halo path
-    was taken."""
+    distributed resamplers on ``n_shards`` shards (or on ``mesh``, which may
+    span processes: the ring resampler then takes the exchange kernel's
+    cross-process form); every field of each must equal the single-device
+    ``resample_state`` bit for bit.  Returns the launches of both exchange
+    kernels (in-process ``ring_launches``, cross-process
+    ``peer_launches``), and whether the halo path was taken."""
     state = resampler_state(config, device, profile, seed)
     u0 = torch.tensor(u0, dtype=torch.float32, device=device)
     want = kernels.resample_state(
@@ -193,11 +196,8 @@ def check_resamplers(config: FastSLAMConfig, n_shards: Optional[int], device, pr
     mesh = mesh or make_mesh(config, [device] * n_shards)
     use_halo = shard_ancestor_window(
         [s.log_weights for s in shard_state(state, mesh, config)], u0, mesh.group)[2]
-    before = cuda_kernels.LAUNCHES["ring_halo_exchange"]
-    resamplers = [("halo", halo_systematic_resample)]
-    if mesh.num_processes == 1:
-        resamplers.append(("ring", ring_halo_resample))
-    for name, resample in resamplers:
+    before = dict(cuda_kernels.LAUNCHES)
+    for name, resample in (("halo", halo_systematic_resample), ("ring", ring_halo_resample)):
         shards = resample(shard_state(state, mesh, config), u0, mesh, config)
         if len(shards) != len(mesh.devices):
             raise AssertionError(f"{name} resampler returned {len(shards)} shards")
@@ -206,8 +206,9 @@ def check_resamplers(config: FastSLAMConfig, n_shards: Optional[int], device, pr
             if not torch.equal(getattr(got, field), getattr(want, field)):
                 raise AssertionError(f"{name} resampler ({profile}): {field} differs from "
                                      "the single-device resample")
-    return {"ring_launches": cuda_kernels.LAUNCHES["ring_halo_exchange"] - before,
-            "halo_path": int(use_halo)}
+    launched = lambda k: cuda_kernels.LAUNCHES[k] - before[k]
+    return {"ring_launches": launched("ring_halo_exchange"),
+            "peer_launches": launched("ring_halo_exchange_peers"), "halo_path": int(use_halo)}
 
 
 def dryrun_multichip(n_shards: int, device="cuda", *, config: Optional[FastSLAMConfig] = None,
@@ -295,7 +296,7 @@ def main(argv=None) -> int:
     results = dryrun_multichip(n, device)
     for mode, r in results.items():
         print(mode, {k: v for k, v in r.items() if k in ("launches", "ring_launches",
-                                                         "halo_path")})
+                                                         "peer_launches", "halo_path")})
     backend = dryrun_backend(n, device)
     print("backend", {"err": backend["err"], "launches": backend["launches"]})
     print(f"sharded dry run on {n} shards of {device}: ok")

@@ -11,8 +11,13 @@ The backend is the caller's and is never switched: ``gloo`` by default, on
 the CPU and also for several processes that share one card (NCCL takes one
 rank per GPU), where CUDA tensors stage through host memory inside the
 collectives.  ``nccl`` is for one process per card, which the cross-card
-engine needs first (ROADMAP §1 item 5).  On a single process everything is a
-no-op, so the same entry point runs everywhere.
+engine needs first (ROADMAP §1 item 5).  The ring resampler's exchange does
+not go through the backend: on the card each process writes into its
+neighbour processes' buffers through CUDA IPC (``core/cuda_kernels.py:
+ring_halo_exchange_peers``), and gloo only all-gathers the IPC handles once
+per ring; ``cuda_kernels.close_peer_rings(group)`` frees the rings before
+the group goes.  On a single process everything is a no-op, so the same
+entry point runs everywhere.
 
 Launch: ``torchrun --nproc-per-node 2 script.py`` sets ``MASTER_ADDR``,
 ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``, which the call reads; or pass

@@ -2,7 +2,9 @@
 (:mod:`~fastslam_tpu_torch.probes.hbm_floor`), the shared-memory stream and
 the FP32 FMA rate (:mod:`~fastslam_tpu_torch.probes.vpu_roofline`), the
 counterparts of ``scripts/bench_hbm_floor.py`` and
-``scripts/bench_vpu_roofline.py``.  Each is a command that prints one JSON
+``scripts/bench_vpu_roofline.py``; and the ring resampler across processes
+(:mod:`~fastslam_tpu_torch.probes.check_ring_resample`), the counterpart of
+``scripts/check_ring_resample.py``.  Each is a command that prints one JSON
 line; on ``--device cpu`` it runs the kernels' plain versions and reports
 ``"device": "cpu"``.
 """

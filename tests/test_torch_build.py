@@ -43,13 +43,16 @@ def test_library_key_follows_every_csrc_file(tmp_path):
 
 
 def c_signatures():
-    """``{launcher: [ctypes type per parameter]}`` from the C sources."""
+    """``{function: [ctypes type per parameter]}`` of every C function that
+    returns ``int`` from the C sources: the launchers and the cross-process
+    ring's set-up and teardown (``csrc/ring_halo.cu:ring_peers_*``)."""
     ctype = lambda decl: (ctypes.c_void_p if "*" in decl else
-                          ctypes.c_float if decl.split()[0] == "float" else ctypes.c_int)
+                          ctypes.c_float if decl.split()[0] == "float" else
+                          ctypes.c_longlong if decl.startswith("long long") else ctypes.c_int)
     out = {}
     for src in _build.sources():
         text = src.read_text()
-        for name, params in re.findall(r"\nint (\w+_launch)\(([^)]*)\)", text):
+        for name, params in re.findall(r"\nint (\w+)\(([^)]*)\)", text):
             out[name] = [ctype(p.strip()) for p in params.split(",")]
     return out
 
@@ -90,6 +93,8 @@ def wrapper_calls(cfg):
         "icp_sin_cos": lambda: cuda_kernels.icp_rotation_sin_cos(meta(P)),
         "ring_halo_exchange": lambda: cuda_kernels.ring_halo_exchange(
             [meta(P, 3 + 1 + 6 * L + 1) for _ in range(C)]),
+        "ring_halo_exchange_peers": lambda: cuda_kernels.ring_halo_exchange_peers(
+            [meta(P, 3 + 1 + 6 * L + 1) for _ in range(C)], "group"),
         "hbm_copy": lambda: cuda_kernels.hbm_copy([meta(L, P) for _ in range(6)]
                                                   + [meta(1, P)]),
         "mul_add": lambda: cuda_kernels.mul_add(meta(L, P), meta(L, P), meta(L, P),
@@ -99,6 +104,20 @@ def wrapper_calls(cfg):
             meta(C, P), cuda_kernels.Segments(meta(P, dtype=torch.int32),
                                               meta(L + 1, dtype=torch.int32))),
     }
+
+
+class FakePeerRing:
+    """What ``ring_halo_exchange_peers`` reads of a ``PeerRing``, made
+    without a process group or a card."""
+
+    def __init__(self):
+        table = lambda n: (ctypes.c_void_p * n)(*range(16, 16 * (n + 1), 16))
+        self.to_left, self.to_right, self.signal = table(C), table(C), table(4)
+        self.base, self.epoch = 4096, 0
+        self.lefts = self.rights = []
+
+    def check(self):
+        pass
 
 
 @pytest.mark.parametrize("name", sorted(cuda_kernels.LAUNCHES))
@@ -112,6 +131,7 @@ def test_wrappers_pass_what_the_signatures_declare(monkeypatch, name):
     monkeypatch.setattr(cuda_kernels, "_launch",
                         lambda fn, device, *args: calls.append((fn, args)))
     monkeypatch.setattr(_build, "load", lambda: FakeLibrary())
+    monkeypatch.setattr(cuda_kernels, "peer_ring", lambda *a: FakePeerRing())
     launches = dict(cuda_kernels.LAUNCHES)
     cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, max_measurements=M,
                          parity_mode=False)

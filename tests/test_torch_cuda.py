@@ -706,6 +706,85 @@ def test_ring_exchange_kernel_refuses_bad_blocks(device):
         cuda_kernels.ring_halo_exchange([blocks[0]] * (cuda_kernels.RING_MAX_SHARDS + 1))
 
 
+@pytest.mark.parametrize("processes,shards", [(2, 2), (2, 1), (4, 1)])
+def test_peer_exchange_across_processes_equals_plain(device, processes, shards):
+    """Processes on the card joined by gloo: 20 exchanges through the
+    cross-process kernel, each on new blocks, each equal to the plain
+    exchange bit for bit (the epochs and the reuse of the buffers), and the
+    ring resampler on both weight profiles equal to ``resample_state``, with
+    one launch per process per call (``probes/check_ring_resample.py``)."""
+    from fastslam_tpu_torch.probes import check_ring_resample
+
+    out = check_ring_resample.run(processes, shards, P, L, "cuda", exchanges=20, timeout=300)
+    assert out["exchange"] == {"exchanges": 20, "max_abs_err": 0.0, "equal": True,
+                               "launches": [20] * processes}
+    for profile in ("healthy", "collapsed"):
+        assert set(out["resample"][profile]["max_abs_err"].values()) == {0.0}
+        assert out["resample"][profile]["peer_launches"] == [1] * processes
+    assert out["ok"]
+
+
+def test_peer_ring_raises_when_a_handle_cannot_be_opened(device, tmp_path):
+    """Two processes, each given zeroed IPC handles for its neighbour: the
+    exchange raises in both (no fallback to the plain exchange), and its
+    kernel never launches."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "bad-handle",
+                               str(rank), str(port), str(tmp_path)],
+                              env={**os.environ, "PYTHONPATH": repo}, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for rank in range(2)]
+    try:
+        for proc in procs:
+            _, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err[-2000:]
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait(timeout=60)
+    for rank in range(2):
+        result = json.loads((tmp_path / f"bad_handle_{rank}.json").read_text())
+        assert "could not map" in result["error"] and "cudaIpcOpenMemHandle" in result["error"]
+        assert result["launches"] == 0
+
+
+def bad_handle_worker(rank: int, port: int, outdir: str) -> None:
+    """One process of ``test_peer_ring_raises_when_a_handle_cannot_be_opened``:
+    the ring's all-gather of IPC handles hands back zeros."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from fastslam_tpu_torch.parallel import collectives
+    from fastslam_tpu_torch.parallel.multihost import initialize_distributed
+
+    initialize_distributed(f"localhost:{port}", 2, rank)
+    gather = collectives.all_gather
+    collectives.all_gather = lambda tensors, dim=0, group=None: torch.zeros_like(
+        gather(tensors, dim, group))
+    blocks = [torch.randn((64, 389), device="cuda") for _ in range(2)]
+    error = None
+    try:
+        cuda_kernels.ring_halo_exchange_peers(blocks, dist.group.WORLD)
+    except RuntimeError as e:
+        error = str(e)
+    with open(os.path.join(outdir, f"bad_handle_{rank}.json"), "w") as f:
+        json.dump({"error": error,
+                   "launches": cuda_kernels.LAUNCHES["ring_halo_exchange_peers"]}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def test_sharded_engine_runs_through_the_kernels(device):
     """The dry run at 4 shards of the card: S launches per tick or chunk of
     the kernel each step names, one exchange launch per ring resample, and
@@ -718,7 +797,7 @@ def test_sharded_engine_runs_through_the_kernels(device):
     results = dryrun.dryrun_multichip(4, device, config=cfg, chunk=C, ticks=3,
                                       measurements=[(1.5 + 0.4 * i, -2.0 + 0.6 * i)
                                                     for i in range(6)])
-    assert results["resample"] == {"ring_launches": 1, "halo_path": 1}
+    assert results["resample"] == {"ring_launches": 1, "peer_launches": 0, "halo_path": 1}
     single = dryrun.run_steps(cfg, None, device, ms, chunk=C, ticks=3)
     for mode, (layout, _, kernel) in dryrun.MODES.items():
         r = results[mode]
@@ -1067,3 +1146,14 @@ def test_map_merge_on_the_card_matches_cpu(device):
     assert int(al.num_matched) == int(al_cpu.num_matched)
     for field in ("valid", "matched_b", "appended_b", "dropped_b"):
         assert torch.equal(getattr(m, field).cpu(), getattr(m_cpu, field)), field
+
+
+if __name__ == "__main__":
+    import os
+    import sys
+
+    if sys.argv[1] == "bad-handle":
+        bad_handle_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)

@@ -13,8 +13,19 @@ must be the same in both processes and bit for bit those of one process
 with 8 shards; the 5-step trajectory within 1e-5 of JAX's single-device
 step; each process holds 32 rows; the weights sum to 1 within 1e-5.
 
+Then both distributed resamplers across the two processes: the halo
+resampler and ``ring_halo_resample`` (the exchange kernel's plain version
+over the group, as CPU shards take it) on healthy weights (the halo path)
+and weights collapsed onto the last shard (the fallback).  Each must equal
+``resample_state`` bit for bit in each worker, the ring's result one
+process's at S = 8 bit for bit, and JAX's ``ring_halo_resample`` with its
+``_ppermute_exchange`` on the 8 virtual CPU devices exactly in the indices
+and counts and within 1e-6 in the floats (the data of
+``tests/test_torch_ring_resample.py``, away from the resample grid).
+
 The worker is this file run as a script (its ``__main__`` block), so it
-imports no JAX; the parent gives it the JAX draws in a file.
+imports no JAX; the parent gives it the JAX draws and the resampler's
+states in a file.
 """
 
 import os
@@ -28,6 +39,7 @@ import torch
 
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import kernels
+from fastslam_tpu_torch.interop import filter_state_from_numpy
 from fastslam_tpu_torch.core.state import (
     Measurements, init_planes_state, init_state, pad_measurements,
 )
@@ -50,8 +62,29 @@ P, L, M, C = 32 * NPROC, 8, 4, 4
 MS = [(2.0, 0.3), (3.5, -0.7)]
 JAX_TICKS = 5
 WORKER_TIMEOUT = 240   # seconds, each worker process
-# the halo resampler's weight profiles: its halo path, then its fallback
+# the resamplers' weight profiles: their halo path, then their fallback
 PROFILES = {"healthy": 1, "collapsed": 0}
+RING_FIELDS = ("poses", "log_weights", "lm_mean", "lm_cov", "lm_count")
+
+
+def ring_states(inputs):
+    """The ring resampler's input states (numpy dicts, one per profile) as
+    port states, and their offsets."""
+    return {profile: (filter_state_from_numpy(st, "cpu"), torch.tensor(u0))
+            for profile, (st, u0) in inputs.items()}
+
+
+def run_rings(mesh, inputs):
+    """``ring_halo_resample`` of each profile's state on ``mesh``: the
+    gathered result's fields."""
+    from fastslam_tpu_torch.parallel.ring_resample import ring_halo_resample
+
+    cfg = config(parity_mode=False)
+    out = {}
+    for profile, (state, u0) in ring_states(inputs).items():
+        got = unshard(ring_halo_resample(shard_state(state, mesh, cfg), u0, mesh, cfg), mesh)
+        out[profile] = {k: getattr(got, k) for k in RING_FIELDS}
+    return out
 
 
 def config(**kw):
@@ -127,7 +160,6 @@ def worker(port: int, rank: int, nproc: int, outdir: str, mode: str) -> None:
     import torch.distributed as dist
 
     from fastslam_tpu_torch.parallel import dryrun
-    from fastslam_tpu_torch.parallel.ring_resample import ring_halo_resample
 
     info = initialize_distributed(f"localhost:{port}", nproc, rank)
     mesh = make_mesh(config(), ["cpu"] * LOCAL_SHARDS)
@@ -136,11 +168,8 @@ def worker(port: int, rank: int, nproc: int, outdir: str, mode: str) -> None:
     if mode == "steps":
         result["runs"] = run_all(mesh, torch.load(os.path.join(outdir, "draws.pt")))
         cfg = config(parity_mode=False)
-        try:
-            ring_halo_resample(shard_state(init_state(cfg, "cpu"), mesh, cfg),
-                               torch.tensor(0.001), mesh, cfg)
-        except NotImplementedError as e:
-            result["ring_refusal"] = str(e)
+        result["rings"] = run_rings(mesh, torch.load(os.path.join(outdir, "rings.pt"),
+                                                     weights_only=False))
         result["resamplers"] = {profile: dryrun.check_resamplers(
             cfg, None, "cpu", profile, 0.004, seed=3, mesh=mesh) for profile in PROFILES}
         result["traffic"] = dict(collectives.TRAFFIC)
@@ -214,7 +243,9 @@ def two_processes(tmp_path_factory):
     from fastslam_tpu.core import kernels as jax_kernels
     from fastslam_tpu.core.state import init_state as jax_init_state
     from fastslam_tpu.core.state import pad_measurements as jax_pad_measurements
+    from tests.test_torch_ring_resample import U0, make_state
     from tests.test_torch_sharded import jax_draws as draws_of
+    from tests.test_torch_step import assert_away_from_grid
 
     jcfg = JaxConfig(num_particles=P, max_landmarks=L, max_measurements=M)
     jms = jax_pad_measurements(jcfg, MS)
@@ -227,9 +258,40 @@ def two_processes(tmp_path_factory):
         jax_poses.append(np.asarray(pose))
     outdir = tmp_path_factory.mktemp("multihost")
     torch.save(draws, outdir / "draws.pt")
+    rings = {profile: (make_state(profile), U0[profile]) for profile in PROFILES}
+    for st, u0 in rings.values():
+        assert_away_from_grid(st["log_weights"], u0)
+    torch.save(rings, outdir / "rings.pt")
     workers = spawn(outdir, "steps")
-    one = run_all(make_mesh(config(), ["cpu"] * NPROC * LOCAL_SHARDS), draws)
-    return {"jax_poses": np.stack(jax_poses), "workers": workers, "one": one}
+    mesh = make_mesh(config(), ["cpu"] * NPROC * LOCAL_SHARDS)
+    one = run_all(mesh, draws)
+    return {"jax_poses": np.stack(jax_poses), "workers": workers, "one": one,
+            "rings": rings, "one_ring": run_rings(mesh, rings)}
+
+
+@pytest.fixture(scope="module")
+def jax_rings(two_processes):
+    """JAX's ring resampler with its ppermute exchange on the 8 virtual CPU
+    devices, on each profile's state (jitted once)."""
+    import jax
+    import jax.numpy as jnp
+
+    from fastslam_tpu.config import FastSLAMConfig as JaxConfig
+    from fastslam_tpu.core.state import FilterState as JaxFilterState
+    from fastslam_tpu.parallel import mesh as jax_mesh
+    from fastslam_tpu.parallel.ring_resample import _ppermute_exchange
+    from fastslam_tpu.parallel.ring_resample import ring_halo_resample as jax_ring
+
+    jcfg = JaxConfig(num_particles=P, max_landmarks=L, parity_mode=False)
+    mesh = jax_mesh.make_mesh(jcfg, devices=jax.devices()[:NPROC * LOCAL_SHARDS])
+    ring = jax.jit(lambda s, u: jax_ring(s, u, mesh, jcfg, _exchange=_ppermute_exchange))
+    out = {}
+    for profile, (st, u0) in two_processes["rings"].items():
+        js = JaxFilterState(**{k: jnp.asarray(v) for k, v in st.items()},
+                            rng=jax.random.key(0))
+        got = ring(jax_mesh.shard_state(js, mesh, jcfg), jnp.float32(u0))
+        out[profile] = {k: np.asarray(getattr(got, k)) for k in RING_FIELDS}
+    return out
 
 
 def test_two_processes_equal_one_bit_for_bit(two_processes):
@@ -262,16 +324,41 @@ def test_two_processes_match_jax_and_hold_half(two_processes):
 
 
 def test_two_processes_resample_across_the_group(two_processes):
-    """The halo resampler across the processes equals ``resample_state``
-    bit for bit (checked in each worker) on its halo path and its fallback;
-    the ring resampler refuses the group; the collectives count their
-    traffic."""
+    """Both resamplers across the processes equal ``resample_state`` bit for
+    bit (checked in each worker) on their halo path and their fallback; the
+    ring's exchange runs its plain version over the group (no kernel on the
+    CPU); the ring's results equal the single-device resample bit for bit;
+    the collectives count their traffic."""
+    cfg = config(parity_mode=False)
     for w in two_processes["workers"]:
-        assert w["resamplers"] == {p: {"ring_launches": 0, "halo_path": h}
+        assert w["resamplers"] == {p: {"ring_launches": 0, "peer_launches": 0, "halo_path": h}
                                    for p, h in PROFILES.items()}
-        assert "ROADMAP §1 item 5" in w["ring_refusal"]
+        for profile, (state, u0) in ring_states(two_processes["rings"]).items():
+            want = kernels.resample_state(
+                state, kernels.systematic_resample_indices(torch.exp(state.log_weights), u0),
+                cfg)
+            for k in RING_FIELDS:
+                assert torch.equal(w["rings"][profile][k], getattr(want, k)), (profile, k)
         assert w["traffic"]["calls"] > 0 and w["traffic"]["bytes"] > 0
         assert w["traffic"]["seconds"] > 0
+
+
+@pytest.mark.parametrize("profile", list(PROFILES))
+def test_two_processes_ring_equals_one_process_and_jax(two_processes, jax_rings, profile):
+    """The ring resampler across the two processes: bit for bit one process
+    at S = 8, and JAX's ring on 8 devices exactly in the indices and counts,
+    within 1e-6 in the floats."""
+    want = two_processes["one_ring"][profile]
+    for w in two_processes["workers"]:
+        got = w["rings"][profile]
+        for k in RING_FIELDS:
+            assert torch.equal(got[k], want[k]), k
+            jax_value = jax_rings[profile][k]
+            if k == "lm_count":
+                np.testing.assert_array_equal(got[k].numpy(), jax_value)
+            else:
+                np.testing.assert_allclose(got[k].numpy(), jax_value, rtol=0, atol=1e-6,
+                                           err_msg=k)
 
 
 if __name__ == "__main__":

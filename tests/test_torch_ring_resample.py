@@ -180,7 +180,7 @@ def test_sharded_step_with_distributed_resample_matches_the_gather():
 
 def test_dryrun_at_8_shards():
     results = dryrun.dryrun_multichip(8, "cpu", ticks=3)
-    assert results["resample"] == {"ring_launches": 0, "halo_path": 1}
+    assert results["resample"] == {"ring_launches": 0, "peer_launches": 0, "halo_path": 1}
     assert set(results) == set(dryrun.MODES) | {"resample"}
     for mode, r in results.items():
         if mode != "resample":
