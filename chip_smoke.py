@@ -174,8 +174,11 @@ Phases, one line each (or more):
     ``resample_state`` bit for bit, with one launch of the exchange
     kernel's cross-process form per process per call; 20 consecutive
     exchanges on new blocks each equal the plain exchange (``ppermute``
-    over gloo) bit for bit; ms per call of the kernel and the plain
-    exchange, and of the ring and the halo resampler, in turns;
+    over gloo) bit for bit, and 20 more back to back with no gloo call
+    between them; ms per call of the kernel and the plain exchange, and of
+    the ring and the halo resampler, in turns; how often each process's
+    wait (a) found its words already set, its longest wait there, and its
+    device ms per call in wait (a), the copy and wait (c);
 24. the sharded checkpoint: both processes save their blocks and planes
     states of phase 23 with ``save_sharded_checkpoint`` and load them into
     fresh templates, bit for bit with the generator; seconds to save and to
@@ -196,8 +199,9 @@ Phases, one line each (or more):
     resampler against ``resample_state`` on both weight profiles, bit for
     bit, one launch of the cross-process kernel per process per call
     (counters set to 0 just before); 20 exchanges against the plain
-    exchange bit for bit; ms per exchange and per resample of the kernel
-    and of gloo in turns, beside phase 23's.
+    exchange bit for bit, and 20 back to back; ms per exchange and per
+    resample of the kernel and of gloo in turns, beside phase 23's; the
+    waits, as in phase 23.
 
 Any failure raises.  The card's name and power limit come on the line
 before the kernels' JSON summary (launches of each main path's first run
@@ -2543,7 +2547,10 @@ def mp_worker(rank: int, port: int, outdir: str) -> int:
         for profile in ("healthy", "collapsed")})
     device = torch.device(DEVICE, torch.cuda.current_device())
     out["exchange"] = check_ring_resample.check_exchanges(cfg, mesh, device, RING_EXCHANGES)
+    out["back_to_back"] = check_ring_resample.check_back_to_back(cfg, mesh, device,
+                                                                 RING_EXCHANGES)
     out["ring_times"] = check_ring_resample.times(cfg, mesh, device, RING_REPS)
+    out["ring_waits"] = cuda_kernels.peer_ring_stats(mesh.group)
     cuda_kernels.close_peer_rings(mesh.group)
     torch.save(out, os.path.join(outdir, f"worker_{rank}.pt"))
     dist.barrier()
@@ -2671,26 +2678,38 @@ def check_ring_workers(workers):
         if w["ring_launches"] != expected:
             raise AssertionError(f"worker {rank}: resample launches {w['ring_launches']}, "
                                  f"expected {expected}")
-        ex = w["exchange"]
-        if not ex["equal"] or ex["max_abs_err"] or ex["launches"] != RING_EXCHANGES:
-            raise AssertionError(f"worker {rank}: exchanges against the plain one {ex}")
+        for key in ("exchange", "back_to_back"):
+            ex = w[key]
+            if not ex["equal"] or ex["max_abs_err"] or ex["launches"] != RING_EXCHANGES:
+                raise AssertionError(f"worker {rank}: {key} against the plain one {ex}")
         for k, v in w["ring_launches"].items():
             launches[k] = launches.get(k, 0) + v
     phase(23, f"ring_halo_resample across {MP_PROCESSES} processes x {MP_SHARDS} shards, "
               f"P={P} L={L}: it and the halo resampler equal resample_state bit for bit on "
               f"healthy weights (halo path) and collapsed ones (fallback), "
               f"{want['healthy']['peer_launches']} launch of {PEERS} per process per call; "
-              f"{RING_EXCHANGES} exchanges on new blocks each equal to the plain exchange bit "
-              f"for bit in both processes, max abs err "
-              f"{max(w['exchange']['max_abs_err'] for w in workers)}")
+              f"{RING_EXCHANGES} exchanges on new blocks, and {RING_EXCHANGES} back to back, "
+              f"each equal to the plain exchange bit for bit in both processes, max abs err "
+              f"{max(w[k]['max_abs_err'] for w in workers for k in ('exchange', 'back_to_back'))}")
     for rank, w in enumerate(workers):
         t = w["ring_times"]
         phase(23, f"process {rank}: ms per call in turns, {RING_REPS} calls each: exchange "
                   f"kernel {' / '.join(f'{x:.3f}' for x in t['kernel'])}, plain (gloo) "
                   f"{' / '.join(f'{x:.3f}' for x in t['plain'])}; ring_halo_resample "
                   f"{' / '.join(f'{x:.3f}' for x in t['ring'])}, halo resampler (gloo) "
-                  f"{' / '.join(f'{x:.3f}' for x in t['halo'])}")
-    return launches, max(w["exchange"]["max_abs_err"] for w in workers)
+                  f"{' / '.join(f'{x:.3f}' for x in t['halo'])}; {ring_waits(w['ring_waits'])}")
+    return launches, max(w[k]["max_abs_err"] for w in workers
+                         for k in ("exchange", "back_to_back"))
+
+
+def ring_waits(waits):
+    """One process's waits of the cross-process exchange, as a phase line
+    reads them (``core/cuda_kernels.py:peer_ring_stats``)."""
+    per_call = lambda k: waits[k] / max(waits["calls"], 1)
+    return (f"wait (a) found its words already set in {waits['entered_met']} of "
+            f"{waits['calls']} calls, longest {waits['entered_max_ms']:.4f} ms; device ms per "
+            f"call: wait (a) {per_call('entered_ms'):.4f}, copy {per_call('copy_ms'):.4f}, "
+            f"wait (c) {per_call('delivered_ms'):.4f}")
 
 
 def phase26(mp_workers):
@@ -2715,8 +2734,11 @@ def phase26(mp_workers):
     phase(26, f"ring_halo_resample across {RING_PROCESSES} processes x 1 shard, P={P} L={L} "
               f"(wall {wall:.2f} s): equal to resample_state bit for bit, healthy and "
               f"collapsed, one launch of {PEERS} per process per call; {RING_EXCHANGES} "
-              f"exchanges each equal to the plain exchange bit for bit (max abs err "
-              f"{out['exchange']['max_abs_err']})")
+              f"exchanges, and {RING_EXCHANGES} back to back, each equal to the plain exchange "
+              f"bit for bit (max abs err "
+              f"{max(out['exchange']['max_abs_err'], out['back_to_back']['max_abs_err'])})")
+    for rank, waits in enumerate(out["waits"]):
+        phase(26, f"process {rank}: {ring_waits(waits)}")
     span = lambda xs: f"{min(xs):.3f}-{max(xs):.3f}"
     times = {k: [x for t in out["times"] for x in t[k]] for k in out["times"][0]}
     before = {k: [x for w in mp_workers for x in w["ring_times"][k]] for k in times}
@@ -2725,7 +2747,8 @@ def phase26(mp_workers):
               f"(gloo) {span(times['plain'])} ({span(before['plain'])}); ring_halo_resample "
               f"{span(times['ring'])} ({span(before['ring'])}), halo resampler (gloo) "
               f"{span(times['halo'])} ({span(before['halo'])})")
-    return launches, out["exchange"]["max_abs_err"], times
+    return (launches, max(out["exchange"]["max_abs_err"], out["back_to_back"]["max_abs_err"]),
+            times)
 
 
 

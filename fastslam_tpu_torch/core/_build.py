@@ -49,12 +49,14 @@ _SIGNATURES = {
     "icp_point_to_line_launch": [_I] + [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
     "icp_sin_cos_launch": [_I] + [_P] * 3 + [_I, _P],
     "ring_halo_exchange_launch": [_I] + [_P] * 3 + [_I] * 2 + [_P],
-    "ring_halo_exchange_peers_launch": [_I] + [_P] * 5 + [_I] * 2 + [_LL] * 2 + [_P],
+    "ring_halo_exchange_peers_launch": [_I] + [_P] * 5 + [_I] * 2 + [_LL, _P],
+    "ring_peers_stream_ops": [_I, _P],
+    "ring_peers_wait": [_I, _P, _P, _I, _P],
+    "ring_peers_write": [_I, _P, _P, _I, _P],
     "ring_peers_alloc": [_I, _LL, _P, _P],
     "ring_peers_open": [_I, _P, _P],
     "ring_peers_close": [_I, _P],
     "ring_peers_free": [_I, _P],
-    "ring_peers_error": [_I, _P, _P, _P],
     "hbm_copy_launch": [_I] + [_P] * 2 + [_I] * 2 + [_P],
     "mul_add_launch": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "fma_chain_launch": [_I] + [_P] * 2 + [_I] * 2 + [_P],

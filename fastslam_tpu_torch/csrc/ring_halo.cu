@@ -28,40 +28,50 @@
 // holding S_local consecutive shards (global shard g = rank * S_local + k).
 // One launch per process per call.  Every process owns one cudaMalloc
 // allocation (ring_peers_alloc): a 256-byte flag region of 64-bit words
-// (PeerFlag), then the left and right receive buffer of each local shard.  Its
-// CUDA IPC handle is all-gathered once, and each process maps its neighbour
-// processes' allocations (ring_peers_open, cudaIpcMemLazyEnablePeerAccess: on
-// another card of the host the same handle gives a peer pointer).  A call at
-// epoch e (1, 2, ...: the flags start at 0):
-//   1. the barrier, in place of the TPU kernel's barrier semaphore: every
-//      block stores ready = e into both neighbour processes' flags (the same
-//      value from every block, so the stores are idempotent and no block
-//      waits for another block of its own grid), with system-scope release
-//      stores; then it waits until its own ready words from both neighbours
-//      reach e, with system-scope acquire loads.  A neighbour that has
-//      entered call e has finished reading its halos of call e - 1 (stream
-//      order), so no write below overruns a buffer still being read;
-//   2. the copy: each 16-byte value of each local block is loaded once and
-//      stored twice, into the left buffer of shard g + 1 and the right buffer
-//      of shard g - 1, through a local pointer or a mapped one; the grid is a
-//      few blocks per SM over a grid-stride loop;
-//   3. completion, in place of the DMA receive semaphores: each block fences
-//      its stores at system scope and counts itself done; the last block
-//      stores delivered = e into both neighbour processes' flags and waits
-//      until its own delivered words reach e.  So the kernel ends when this
-//      process's halos are in place, and stream order after it reads them.
-// Every wait is bounded by %globaltimer (timeout_ns) and sleeps between
-// polls; a wait that times out writes the error word (PEER_ERROR) and its
-// block returns, so the kernel ends and the wrapper raises.  Without MPS the
-// card time-slices the processes' contexts, so a block spinning on a
-// neighbour's flag waits for that neighbour's next time slice: a call across
-// processes is paced by context switches, not by bytes.
-//
+// (PeerFlag), then two sets of receive buffers, a left and a right one for
+// each local shard in each set.  Its CUDA IPC handle is all-gathered once,
+// and each process maps its neighbour processes' allocations
+// (ring_peers_open, cudaIpcMemLazyEnablePeerAccess: on another card of the
+// host the same handle gives a peer pointer).  Call e (1, 2, ...: the flags
+// start at 0) writes buffer set e % 2, and no thread of the kernel waits on
+// another process.  Every such wait is a 64-bit stream memory operation on
+// the caller's stream (ring_peers_wait: cuStreamWaitValue64, GEQ), which the
+// stream's front end holds without occupying an SM, so a process whose
+// stream is blocked has no running work and the card can switch to its
+// neighbour at once.  Per call, on the stream (core/cuda_kernels.py
+// ring_peer_schedule):
+//   (a) wait until both neighbours' entered words in my region reach e - 1.
+//       Set e % 2 of a neighbour was last read at its call e - 2, and a
+//       process that has entered call e - 1 has finished reading it (stream
+//       order), so a write below never overruns a buffer still being read;
+//   (b) this kernel: block 0 stores entered = e into both neighbour
+//       processes' regions (system-scope release); each 16-byte value of
+//       each local block is loaded once and stored twice, into the left
+//       buffer of shard g + 1 and the right buffer of shard g - 1 of set
+//       e % 2, through a local pointer or a mapped one, a few blocks per SM
+//       over a grid-stride loop; each block fences its stores at system
+//       scope and counts itself done, and the last block stores
+//       delivered = e into both neighbours;
+//   (c) wait until both neighbours' delivered words reach e: my halos of
+//       call e are in place, and stream order after it reads them.
+// A neighbour that delivered e has entered e, so (c) of call e - 1 already
+// implies (a) of call e on the same stream: (a) guards a caller that
+// switches streams between calls, and is met at once otherwise.  A
+// front-end wait has no timeout: the wrapper polls an event recorded after
+// (c) with a deadline, and on expiry releases the stream by writing the
+// awaited words into its own region from a second stream (ring_peers_write),
+// after the cancel word, so that a call released in (a) copies nothing.
+// There is no fallback: ring_peers_stream_ops reports whether the card takes
+// 64-bit stream memory operations, and the ring refuses a card that does
+// not.
+
 // What bounds both on an H100: the bytes.  The ring reads S * n * 4 bytes and
 // writes twice that; at P = 100,000, L = 64 (S * n = 38.9M floats) that is 467
 // MB, 0.139 ms at 3.35 TB/s.  They do no arithmetic.  The 16-byte loads and
 // stores, coalesced across the warp, are what the design does about it.
 
+#include <cuda.h>   // the driver's types and enums; its functions come through
+                    // cudaGetDriverEntryPoint, so nothing links libcuda
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -118,74 +128,47 @@ constexpr int PEER_BLOCKS_PER_SM = 4;
 
 // the 64-bit words of a process's flag region (core/cuda_kernels.py PEER_FLAGS)
 enum PeerFlag : int {
-  PEER_READY_FROM_LEFT = 0,       // the left neighbour process entered call e
-  PEER_READY_FROM_RIGHT = 1,      // the right one did
-  PEER_DELIVERED_FROM_LEFT = 2,   // the left one's block is in my first shard's left buffer
+  PEER_ENTERED_FROM_LEFT = 0,     // the left neighbour process entered call e
+  PEER_ENTERED_FROM_RIGHT = 1,    // the right one did
+  PEER_DELIVERED_FROM_LEFT = 2,   // the left one's block of call e is in my first shard's left
+                                  // buffer
   PEER_DELIVERED_FROM_RIGHT = 3,  // the right one's is in my last shard's right buffer
   PEER_BLOCKS_DONE = 4,           // blocks of the running call that finished their copy
-  PEER_ERROR = 5,                 // (epoch << 2) | wait that timed out (1 ready, 2 delivered)
+  PEER_CANCELLED = 5,             // the last call released by a timeout: it copies nothing
 };
 
 struct PeerRingArgs {
   const float* src[RING_MAX_SHARDS];
   float* to_left[RING_MAX_SHARDS];   // the left buffer of shard g + 1 (mapped if remote)
   float* to_right[RING_MAX_SHARDS];  // the right buffer of shard g - 1
-  // my words in the neighbours' flag regions: ready into the right process
-  // (its PEER_READY_FROM_LEFT), ready into the left one, delivered likewise
-  unsigned long long* ready_right;
-  unsigned long long* ready_left;
+  // my words in the neighbours' flag regions: entered into the right process
+  // (its PEER_ENTERED_FROM_LEFT), entered into the left one, delivered likewise
+  unsigned long long* entered_right;
+  unsigned long long* entered_left;
   unsigned long long* delivered_right;
   unsigned long long* delivered_left;
   unsigned long long* flags;          // my own flag region
 };
 
-__device__ __forceinline__ unsigned long long global_timer_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 __device__ __forceinline__ void store_release_sys(unsigned long long* p, unsigned long long v) {
   asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-__device__ __forceinline__ unsigned long long load_acquire_sys(const unsigned long long* p) {
+__device__ __forceinline__ unsigned long long load_relaxed_sys(const unsigned long long* p) {
   unsigned long long v;
-  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  asm volatile("ld.relaxed.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
   return v;
-}
-
-// Spins until flags[a] and flags[b] reach epoch (a neighbour may already be
-// one call ahead); false once timeout_ns have passed.
-__device__ bool wait_for_epoch(const unsigned long long* flags, int a, int b,
-                               unsigned long long epoch, unsigned long long timeout_ns) {
-  const unsigned long long start = global_timer_ns();
-  unsigned sleep_ns = 32;
-  while (load_acquire_sys(flags + a) < epoch || load_acquire_sys(flags + b) < epoch) {
-    if (global_timer_ns() - start > timeout_ns) return false;
-    __nanosleep(sleep_ns);
-    if (sleep_ns < 2048) sleep_ns *= 2;
-  }
-  return true;
-}
-
-__device__ void peer_fail(unsigned long long* flags, unsigned long long epoch, int which) {
-  atomicCAS(flags + PEER_ERROR, 0ull, (epoch << 2) | static_cast<unsigned long long>(which));
 }
 
 __global__ void __launch_bounds__(PEER_THREADS)
 ring_halo_peers_kernel(const PeerRingArgs ring, const int S, const long long n,
-                       const unsigned long long epoch, const unsigned long long timeout_ns) {
-  __shared__ int ready;
-  if (threadIdx.x == 0) {
-    store_release_sys(ring.ready_right, epoch);
-    store_release_sys(ring.ready_left, epoch);
-    ready = wait_for_epoch(ring.flags, PEER_READY_FROM_LEFT, PEER_READY_FROM_RIGHT, epoch,
-                           timeout_ns);
-    if (!ready) peer_fail(ring.flags, epoch, 1);
+                       const unsigned long long epoch) {
+  // one read, no poll: set only when the wrapper released this call's wait (a)
+  if (load_relaxed_sys(ring.flags + PEER_CANCELLED) >= epoch) return;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    store_release_sys(ring.entered_right, epoch);
+    store_release_sys(ring.entered_left, epoch);
   }
-  __syncthreads();
-  if (!ready) return;
 
   const long long n4 = n / 4;
   const long long stride = static_cast<long long>(gridDim.x) * PEER_THREADS;
@@ -225,11 +208,49 @@ ring_halo_peers_kernel(const PeerRingArgs ring, const int S, const long long n,
       __threadfence_system();
       store_release_sys(ring.delivered_right, epoch);
       store_release_sys(ring.delivered_left, epoch);
-      if (!wait_for_epoch(ring.flags, PEER_DELIVERED_FROM_LEFT, PEER_DELIVERED_FROM_RIGHT, epoch,
-                          timeout_ns))
-        peer_fail(ring.flags, epoch, 2);
     }
   }
+}
+
+// The driver's stream memory operations, resolved once.
+using WaitValue64 = CUresult (*)(CUstream, CUdeviceptr, cuuint64_t, unsigned int);
+using WriteValue64 = CUresult (*)(CUstream, CUdeviceptr, cuuint64_t, unsigned int);
+using DeviceGet = CUresult (*)(CUdevice*, int);
+using DeviceGetAttribute = CUresult (*)(int*, CUdevice_attribute, CUdevice);
+
+struct StreamOps {
+  WaitValue64 wait = nullptr;
+  WriteValue64 write = nullptr;
+  DeviceGet device = nullptr;
+  DeviceGetAttribute attribute = nullptr;
+};
+
+cudaError_t driver_entry(const char* name, void** fn) {
+  cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion(name, fn, 12000, cudaEnableDefault, &status);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint(name, fn, cudaEnableDefault, &status);
+#endif
+  if (err == cudaSuccess && (status != cudaDriverEntryPointSuccess || *fn == nullptr))
+    err = cudaErrorSymbolNotFound;
+  return err;
+}
+
+cudaError_t stream_ops(const StreamOps** out) {
+  static StreamOps ops;
+  static cudaError_t resolved = [] {
+    cudaError_t err = driver_entry("cuStreamWaitValue64", reinterpret_cast<void**>(&ops.wait));
+    if (err == cudaSuccess)
+      err = driver_entry("cuStreamWriteValue64", reinterpret_cast<void**>(&ops.write));
+    if (err == cudaSuccess)
+      err = driver_entry("cuDeviceGet", reinterpret_cast<void**>(&ops.device));
+    if (err == cudaSuccess)
+      err = driver_entry("cuDeviceGetAttribute", reinterpret_cast<void**>(&ops.attribute));
+    return err;
+  }();
+  *out = &ops;
+  return resolved;
 }
 
 }  // namespace
@@ -262,21 +283,21 @@ int ring_halo_exchange_launch(int device, const float* const* src, float* const*
   return static_cast<int>(cudaGetLastError());
 }
 
-// The cross-process exchange: src, to_left and to_right are host arrays of S
-// device pointers (this process's blocks of n floats, and the left buffer of
-// shard g + 1 and the right buffer of shard g - 1 each block goes to, all
-// aligned to 16 bytes); signal holds this process's four words in its
-// neighbours' flag regions (ready right, ready left, delivered right,
-// delivered left); flags is its own region.  epoch counts the calls from 1.
-// Returns a cudaError_t; a timed-out wait shows in the error word only
-// (ring_peers_error).
+// The cross-process exchange's copy, step (b) of a call: src, to_left and
+// to_right are host arrays of S device pointers (this process's blocks of n
+// floats, and the left buffer of shard g + 1 and the right buffer of shard
+// g - 1 of the call's buffer set each block goes to, all aligned to 16
+// bytes); signal holds this process's four words in its neighbours' flag
+// regions (entered right, entered left, delivered right, delivered left);
+// flags is its own region.  epoch counts the calls from 1.  Returns a
+// cudaError_t.
 int ring_halo_exchange_peers_launch(int device, const float* const* src, float* const* to_left,
                                     float* const* to_right, unsigned long long* const* signal,
                                     unsigned long long* flags, int S, int n, long long epoch,
-                                    long long timeout_ns, void* stream) {
+                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (S < 1 || S > RING_MAX_SHARDS || n < 1 || epoch < 1 || timeout_ns < 1)
+  if (S < 1 || S > RING_MAX_SHARDS || n < 1 || epoch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   PeerRingArgs ring;
   for (int s = 0; s < S; ++s) {
@@ -284,8 +305,8 @@ int ring_halo_exchange_peers_launch(int device, const float* const* src, float* 
     ring.to_left[s] = to_left[s];
     ring.to_right[s] = to_right[s];
   }
-  ring.ready_right = signal[0];
-  ring.ready_left = signal[1];
+  ring.entered_right = signal[0];
+  ring.entered_left = signal[1];
   ring.delivered_right = signal[2];
   ring.delivered_left = signal[3];
   ring.flags = flags;
@@ -298,9 +319,65 @@ int ring_halo_exchange_peers_launch(int device, const float* const* src, float* 
   if (blocks < 1) blocks = 1;                     // the tail alone
   ring_halo_peers_kernel<<<static_cast<unsigned>(blocks), PEER_THREADS, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      ring, S, static_cast<long long>(n), static_cast<unsigned long long>(epoch),
-      static_cast<unsigned long long>(timeout_ns));
+      ring, S, static_cast<long long>(n), static_cast<unsigned long long>(epoch));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether the card takes the 64-bit stream memory operations the waits use
+// (CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS) into *supported, after
+// resolving them.  The three functions below return a cudaError_t, or the
+// driver's CUresult, whose codes the runtime's share for the errors these
+// calls give.
+int ring_peers_stream_ops(int device, int* supported) {
+  *supported = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const StreamOps* ops = nullptr;
+  err = stream_ops(&ops);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUdevice dev;
+  CUresult rc = ops->device(&dev, device);
+  if (rc == CUDA_SUCCESS)
+    rc = ops->attribute(supported, CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS, dev);
+  return static_cast<int>(rc);
+}
+
+// Enqueues on stream, for each of the count words, a wait until it reaches
+// its value (cuStreamWaitValue64, CU_STREAM_WAIT_VALUE_GEQ: as int64,
+// *word - value >= 0).
+int ring_peers_wait(int device, const unsigned long long* const* words, const long long* values,
+                    int count, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const StreamOps* ops = nullptr;
+  err = stream_ops(&ops);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int i = 0; i < count; ++i) {
+    const CUresult rc = ops->wait(static_cast<CUstream>(stream),
+                                  reinterpret_cast<CUdeviceptr>(words[i]),
+                                  static_cast<cuuint64_t>(values[i]), CU_STREAM_WAIT_VALUE_GEQ);
+    if (rc != CUDA_SUCCESS) return static_cast<int>(rc);
+  }
+  return 0;
+}
+
+// Enqueues on stream a write of each value into its word, in order, each
+// after a memory fence (cuStreamWriteValue64, CU_STREAM_WRITE_VALUE_DEFAULT).
+int ring_peers_write(int device, unsigned long long* const* words, const long long* values,
+                     int count, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const StreamOps* ops = nullptr;
+  err = stream_ops(&ops);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int i = 0; i < count; ++i) {
+    const CUresult rc = ops->write(static_cast<CUstream>(stream),
+                                   reinterpret_cast<CUdeviceptr>(words[i]),
+                                   static_cast<cuuint64_t>(values[i]),
+                                   CU_STREAM_WRITE_VALUE_DEFAULT);
+    if (rc != CUDA_SUCCESS) return static_cast<int>(rc);
+  }
+  return 0;
 }
 
 // Set-up and teardown of a process's allocation for the cross-process ring.
@@ -341,17 +418,6 @@ int ring_peers_free(int device, void* ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaFree(ptr));
-}
-
-// The error word of a flag region into *word, after the work queued on
-// stream (the exchange) has finished.
-int ring_peers_error(int device, const unsigned long long* flags, long long* word, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemcpyAsync(word, flags + PEER_ERROR, sizeof(long long), cudaMemcpyDeviceToHost, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaStreamSynchronize(s));
 }
 
 }  // extern "C"

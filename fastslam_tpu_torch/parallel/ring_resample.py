@@ -15,9 +15,10 @@ neighbour barrier.  Here:
   (``core/cuda_kernels.py:ring_halo_exchange``);
 * on a mesh that spans the processes of a group, each process launches the
   kernel's cross-process form once per call
-  (``core/cuda_kernels.py:ring_halo_exchange_peers``): it writes into its
-  neighbour processes' receive buffers through CUDA IPC mappings, behind a
-  barrier on flags in device memory.  The weights, the halo-or-fallback
+  (``core/cuda_kernels.py:ring_halo_exchange_peers``): it writes into one
+  of two sets of its neighbour processes' receive buffers, by call parity,
+  through CUDA IPC mappings, and its stream waits on their flags in device
+  memory on the front end, never on an SM.  The weights, the halo-or-fallback
   decision and the fallback's whole-state gather run over the group.  The
   halos it returns live in the ring's persistent buffers, so
   :func:`_ring_body` consumes them (``index_select`` into new tensors)

@@ -6,7 +6,10 @@ counterparts of ``scripts/bench_hbm_floor.py`` and
 (:mod:`~fastslam_tpu_torch.probes.check_ring_resample`), the counterpart of
 ``scripts/check_ring_resample.py``.  Each is a command that prints one JSON
 line; on ``--device cpu`` it runs the kernels' plain versions and reports
-``"device": "cpu"``.
+``"device": "cpu"``.  Two more commands time checkouts of this repository
+in turns on the card: the backend's segment sums
+(:mod:`~fastslam_tpu_torch.probes.segment_sum_turns`) and the ring across
+processes (:mod:`~fastslam_tpu_torch.probes.ring_peers_turns`).
 """
 
 from __future__ import annotations

@@ -13,8 +13,10 @@ healthy weights (the halo path) and on weights collapsed onto the last
 three particles (the whole-state fallback), and compares the gathered
 result with the single-device ``resample_state``.  Then it runs
 ``--exchanges`` consecutive exchanges, each on new blocks, against the plain
-exchange (``ppermute`` over the group), and with ``--reps`` times both
-exchanges and both distributed resamplers in turns::
+exchange (``ppermute`` over the group); as many again back to back, with no
+call over the group between them, each checked against the plain exchange
+afterwards; and with ``--reps`` times both exchanges and both distributed
+resamplers in turns::
 
     python -m fastslam_tpu_torch.probes.check_ring_resample [--processes 2] \\
         [--shards 1] [--particles 1024] [--landmarks 16] [--exchanges 20] \\
@@ -23,11 +25,14 @@ exchanges and both distributed resamplers in turns::
 prints one JSON line: per weight profile the largest absolute difference of
 each field over the processes and each process's launches of the
 cross-process kernel, and each process's launch counters after both
-resamples (``launches``, set to 0 before them); the exchanges' largest
-difference, whether all were
-equal bit for bit, and the launches; ``ok`` (every difference 0, and on the
-card one launch per process per resample or exchange); the times of each
-process (``--reps``); and ``device`` and ``power_limit_w``.  A process that
+resamples (``launches``, set to 0 before them); for the exchanges and the
+back-to-back exchanges their largest difference, whether all were equal bit
+for bit, and the launches; ``ok`` (every difference 0, and on the card one
+launch per process per resample or exchange); each process's waits over the
+run (``waits``, ``core/cuda_kernels.py:peer_ring_stats``: the calls, those
+whose wait (a) was met at once, the longest wait (a), the device ms of the
+waits and the copy); the times of each process (``--reps``); and
+``device`` and ``power_limit_w``.  A process that
 fails or outlives ``--timeout`` seconds fails the command.
 """
 
@@ -106,6 +111,34 @@ def check_exchanges(cfg, mesh, device, n: int, seed: int = 0) -> dict:
             "launches": cuda_kernels.LAUNCHES["ring_halo_exchange_peers"] - before}
 
 
+def check_back_to_back(cfg, mesh, device, n: int, seed: int = 1) -> dict:
+    """``n`` exchanges back to back, each on new random blocks, with no call
+    over the group between them: each call's halos are copied as soon as it
+    returns (they stay valid until the next exchange), and compared with the
+    plain exchange of the same blocks after the last call.  The largest
+    absolute difference, whether every halo was equal bit for bit, and the
+    cross-process kernel's launches."""
+    from fastslam_tpu_torch.core import cuda_kernels
+
+    gen = torch.Generator(device=device).manual_seed(seed + mesh.process_index)
+    before = cuda_kernels.LAUNCHES["ring_halo_exchange_peers"]
+    sent, got = [], []
+    for _ in range(n):
+        blocks = [torch.randn(block_shape(cfg, mesh), generator=gen, device=device)
+                  for _ in mesh.devices]
+        lefts, rights = cuda_kernels.ring_halo_exchange_peers(blocks, mesh.group)
+        sent.append(blocks)
+        got.append([h.clone() for h in lefts + rights])
+    launches = cuda_kernels.LAUNCHES["ring_halo_exchange_peers"] - before
+    worst, equal = 0.0, True
+    for blocks, halos in zip(sent, got):
+        want = cuda_kernels.ring_halo_exchange_peers_ref(blocks, mesh.group)
+        for g, w in zip(halos, want[0] + want[1]):
+            worst = max(worst, float((g - w).abs().max()))
+            equal = equal and torch.equal(g, w)
+    return {"exchanges": n, "max_abs_err": worst, "equal": equal, "launches": launches}
+
+
 def _ms_per_call(fn, reps: int, device) -> float:
     """Host ms per call of ``fn`` over ``reps`` calls after one warm-up,
     the device synchronised at both ends."""
@@ -166,9 +199,11 @@ def worker(rank: int, port: int, outdir: str, args) -> None:
                          max_measurements=4)
     mesh = make_mesh(cfg, [device] * args.shards)
     out = {"resample": resample_checks(cfg, mesh, device),
-           "exchange": check_exchanges(cfg, mesh, device, args.exchanges)}
+           "exchange": check_exchanges(cfg, mesh, device, args.exchanges),
+           "back_to_back": check_back_to_back(cfg, mesh, device, args.exchanges)}
     if args.reps:
         out["times"] = times(cfg, mesh, device, args.reps)
+    out["waits"] = cuda_kernels.peer_ring_stats(mesh.group)
     cuda_kernels.close_peer_rings(mesh.group)
     with open(os.path.join(outdir, f"worker_{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -226,16 +261,19 @@ def run(processes: int = 2, shards: int = 1, particles: int = 1024, landmarks: i
                     "peer_launches": [w["resample"][p]["peer_launches"] for w in found]}
                 for p in PROFILES}
     launches = [w["resample"]["launches"] for w in found]
-    exchange = {"exchanges": exchanges,
-                "max_abs_err": max(w["exchange"]["max_abs_err"] for w in found),
-                "equal": all(w["exchange"]["equal"] for w in found),
-                "launches": [w["exchange"]["launches"] for w in found]}
+    exchange, back_to_back = ({"exchanges": exchanges,
+                               "max_abs_err": max(w[key]["max_abs_err"] for w in found),
+                               "equal": all(w[key]["equal"] for w in found),
+                               "launches": [w[key]["launches"] for w in found]}
+                              for key in ("exchange", "back_to_back"))
     ok = (all(v == 0.0 for r in resample.values() for v in r["max_abs_err"].values())
           and all(r["peer_launches"] == [int(on_card)] * processes for r in resample.values())
-          and exchange["equal"] and exchange["launches"] == [exchanges * on_card] * processes)
+          and all(e["equal"] and e["launches"] == [exchanges * on_card] * processes
+                  for e in (exchange, back_to_back)))
     out = {"processes": processes, "shards_per_process": shards,
            "ring_shards": processes * shards, "particles": particles, "landmarks": landmarks,
-           "resample": resample, "launches": launches, "exchange": exchange, "ok": ok,
+           "resample": resample, "launches": launches, "exchange": exchange,
+           "back_to_back": back_to_back, "ok": ok, "waits": [w["waits"] for w in found],
            **device_fields(torch.device(device))}
     if reps:
         out["times"] = [w["times"] for w in found]
@@ -250,7 +288,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--landmarks", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--exchanges", type=int, default=20,
-                    help="exchanges on new blocks, each against the plain exchange")
+                    help="exchanges on new blocks, each against the plain exchange, then as "
+                         "many back to back")
     ap.add_argument("--reps", type=int, default=0,
                     help="calls per timed turn (0: no times)")
     ap.add_argument("--timeout", type=float, default=600.0,

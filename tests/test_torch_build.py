@@ -108,16 +108,26 @@ def wrapper_calls(cfg):
 
 class FakePeerRing:
     """What ``ring_halo_exchange_peers`` reads of a ``PeerRing``, made
-    without a process group or a card."""
+    without a process group or a card: its waits enqueue nothing."""
 
     def __init__(self):
+        self.rank, self.world, self.base, self.epoch = 0, 2, 4096, 0
+
+    def begin(self, call, stream):
+        pass
+
+    def tables(self, call):
         table = lambda n: (ctypes.c_void_p * n)(*range(16, 16 * (n + 1), 16))
-        self.to_left, self.to_right, self.signal = table(C), table(C), table(4)
-        self.base, self.epoch = 4096, 0
-        self.lefts = self.rights = []
+        return table(len(call.writes)), table(len(call.writes)), table(4)
+
+    def end(self, call, stream):
+        pass
 
     def check(self):
         pass
+
+    def halos(self, call):
+        return [], []
 
 
 @pytest.mark.parametrize("name", sorted(cuda_kernels.LAUNCHES))
@@ -132,6 +142,7 @@ def test_wrappers_pass_what_the_signatures_declare(monkeypatch, name):
                         lambda fn, device, *args: calls.append((fn, args)))
     monkeypatch.setattr(_build, "load", lambda: FakeLibrary())
     monkeypatch.setattr(cuda_kernels, "peer_ring", lambda *a: FakePeerRing())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
     launches = dict(cuda_kernels.LAUNCHES)
     cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, max_measurements=M,
                          parity_mode=False)

@@ -710,25 +710,39 @@ def test_ring_exchange_kernel_refuses_bad_blocks(device):
 def test_peer_exchange_across_processes_equals_plain(device, processes, shards):
     """Processes on the card joined by gloo: 20 exchanges through the
     cross-process kernel, each on new blocks, each equal to the plain
-    exchange bit for bit (the epochs and the reuse of the buffers), and the
-    ring resampler on both weight profiles equal to ``resample_state``, with
-    one launch per process per call (``probes/check_ring_resample.py``)."""
+    exchange bit for bit (the epochs and both buffer sets), and the ring
+    resampler on both weight profiles equal to ``resample_state``, with one
+    launch per process per call (``probes/check_ring_resample.py``)."""
     from fastslam_tpu_torch.probes import check_ring_resample
 
     out = check_ring_resample.run(processes, shards, P, L, "cuda", exchanges=20, timeout=300)
     assert out["exchange"] == {"exchanges": 20, "max_abs_err": 0.0, "equal": True,
                                "launches": [20] * processes}
+    # 2 resamples, 20 exchanges and 20 back to back in each process
+    assert [w["calls"] for w in out["waits"]] == [42] * processes
     for profile in ("healthy", "collapsed"):
         assert set(out["resample"][profile]["max_abs_err"].values()) == {0.0}
         assert out["resample"][profile]["peer_launches"] == [1] * processes
     assert out["ok"]
 
 
-def test_peer_ring_raises_when_a_handle_cannot_be_opened(device, tmp_path):
-    """Two processes, each given zeroed IPC handles for its neighbour: the
-    exchange raises in both (no fallback to the plain exchange), and its
-    kernel never launches."""
-    import json
+@pytest.mark.parametrize("processes,shards", [(2, 2), (3, 1)])
+def test_peer_exchanges_back_to_back_equal_plain(device, processes, shards):
+    """20 exchanges in each process with no call over the group between
+    them, so that a process may run a call ahead of its neighbour (the wait
+    (a) and both buffer sets): each call's halos, copied as it returns, equal
+    the plain exchange of its blocks bit for bit."""
+    from fastslam_tpu_torch.probes import check_ring_resample
+
+    out = check_ring_resample.run(processes, shards, P, L, "cuda", exchanges=20, timeout=300)
+    assert out["back_to_back"] == {"exchanges": 20, "max_abs_err": 0.0, "equal": True,
+                                   "launches": [20] * processes}
+    assert out["ok"]
+
+
+def _run_pair(mode: str, tmp_path, *extra):
+    """Run ``mode`` of this file's ``__main__`` in two processes joined by
+    gloo on a free port; each must exit 0 within 300 s."""
     import os
     import socket
     import subprocess
@@ -738,8 +752,8 @@ def test_peer_ring_raises_when_a_handle_cannot_be_opened(device, tmp_path):
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "bad-handle",
-                               str(rank), str(port), str(tmp_path)],
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), mode,
+                               str(rank), str(port), str(tmp_path), *map(str, extra)],
                               env={**os.environ, "PYTHONPATH": repo}, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for rank in range(2)]
@@ -751,6 +765,76 @@ def test_peer_ring_raises_when_a_handle_cannot_be_opened(device, tmp_path):
         for proc in procs:
             proc.kill()
             proc.wait(timeout=60)
+
+
+@pytest.mark.parametrize("timeout", [2.0])
+def test_peer_exchange_raises_when_a_neighbour_stops_calling(device, tmp_path, timeout):
+    """Two processes exchange three times; then process 1 stops calling.
+    Process 0's fourth call raises within ``timeout`` and a few seconds,
+    naming the call and its wait (c), rather than hang; its stream runs work
+    again afterwards, and the ring is refused from then on."""
+    import json
+
+    _run_pair("silent", tmp_path, timeout)
+    first = json.loads((tmp_path / "silent_0.json").read_text())
+    second = json.loads((tmp_path / "silent_1.json").read_text())
+    assert "call 4" in first["error"] and "delivered" in first["error"], first["error"]
+    assert "still blocked" not in first["error"]
+    assert timeout <= first["seconds"] < timeout + 10.0
+    assert first["stream_ok"]
+    assert "failed earlier" in first["refused"]
+    assert (first["launches"], second["launches"]) == (4, 3)
+
+
+def silent_worker(rank: int, port: int, outdir: str, timeout: float) -> None:
+    """One process of ``test_peer_exchange_raises_when_a_neighbour_stops_calling``."""
+    import json
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    from fastslam_tpu_torch.parallel.multihost import initialize_distributed
+
+    initialize_distributed(f"localhost:{port}", 2, rank)
+    group = dist.group.WORLD
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    blocks = [torch.randn((64, 389), generator=gen, device="cuda") for _ in range(2)]
+    for _ in range(3):
+        lefts, rights = cuda_kernels.ring_halo_exchange_peers(blocks, group)
+        want = cuda_kernels.ring_halo_exchange_peers_ref(blocks, group)
+        assert all(torch.equal(g, w) for g, w in zip(lefts + rights, want[0] + want[1]))
+    out = {"error": None, "refused": None}
+    if rank == 0:
+        cuda_kernels.PEER_TIMEOUT_S = timeout
+        t0 = time.monotonic()
+        try:
+            cuda_kernels.ring_halo_exchange_peers(blocks, group)
+        except RuntimeError as e:
+            out["error"] = str(e)
+        out["seconds"] = time.monotonic() - t0
+        x = torch.arange(1000.0, device="cuda")
+        out["stream_ok"] = float((x * 2).sum()) == 999000.0
+        try:
+            cuda_kernels.ring_halo_exchange_peers(blocks, group)
+        except RuntimeError as e:
+            out["refused"] = str(e)
+    out["launches"] = cuda_kernels.LAUNCHES["ring_halo_exchange_peers"]
+    with open(os.path.join(outdir, f"silent_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    cuda_kernels.close_peer_rings()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def test_peer_ring_raises_when_a_handle_cannot_be_opened(device, tmp_path):
+    """Two processes, each given zeroed IPC handles for its neighbour: the
+    exchange raises in both (no fallback to the plain exchange), and its
+    kernel never launches."""
+    import json
+
+    _run_pair("bad-handle", tmp_path)
     for rank in range(2):
         result = json.loads((tmp_path / f"bad_handle_{rank}.json").read_text())
         assert "could not map" in result["error"] and "cudaIpcOpenMemHandle" in result["error"]
@@ -1154,6 +1238,8 @@ if __name__ == "__main__":
 
     if sys.argv[1] == "bad-handle":
         bad_handle_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1] == "silent":
+        silent_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], float(sys.argv[5]))
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(0)
