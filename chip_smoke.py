@@ -132,13 +132,17 @@ Phases, one line each (or more):
     ``ReplayDriver``) on the fused loop at P=100,000, each ATE under 0.06 m,
     with ms per tick;
 21. the pose-graph backend on the card.  (a) BASELINE config #5 at full
-    scale: the serpentine survey world (``backend/survey.py``) with 1.1M
+    scale through ``eval.backend_1m.run`` (the world built and aligned once):
+    the serpentine survey world (``backend/survey.py``) with 1.1M
     landmarks and K=1024 keyframes, consensus alignment, the graph (2^21
     landmark slots, 2^23 factor slots) with the host seconds of each stage;
-    landmarks within 3 % of 1.1M and no factor dropped; ``optimize_sharded``,
-    4 GN iterations at damping 1e-3, on a map mesh of 4 shards of the card
-    (exactly 4 segment_sum launches per shard per iteration, error down,
-    gauge-aligned keyframe error under 0.6x), again bit for bit, then on 1
+    ``optimize_sharded``, 4 GN iterations at damping 1e-3, on a map mesh of
+    4 shards of the card (exactly 4 segment_sum launches per shard per
+    iteration), held to ``scripts/bench_backend_1m.py``'s assertions
+    (``eval.backend_1m.check``: no factor dropped, landmarks within 3 % of
+    1.1M, error down, gauge-aligned keyframe error under 0.6x and within
+    0.05 + 0.25x of the committed ``eval_results/backend_1m.json``); the
+    optimization again bit for bit, then on 1
     shard (poses within 1e-4, landmarks within 1e-3 of S=4); ms per
     iteration by CUDA events split into the Schur reduction, its cross term,
     the Cholesky solve, back-substitution and the host error, and the peak
@@ -201,7 +205,29 @@ Phases, one line each (or more):
     (counters set to 0 just before); 20 exchanges against the plain
     exchange bit for bit, and 20 back to back; ms per exchange and per
     resample of the kernel and of gloo in turns, beside phase 23's; the
-    waits, as in phase 23.
+    waits, as in phase 23;
+27. the card against the CPU (``probes.check_parity``, the counterpart of
+    ``scripts/check_pallas_parity.py``), each check from the same draws:
+    the per-tick motion kernel in 3 parity-mode blocks steps at P=800,
+    L=64, M=16 (counts equal; poses and the returned pose 1e-5, means and
+    covariances 5e-4, log-weights 5e-3), the per-tick fs2 kernel in 3
+    planes steps against the CPU's blocks steps at P=1,024 (under 1 % count
+    flips; on the rest, the 99th percentile under poses 5e-5, means and
+    covariances 5e-4, log-weights 5e-2, under 1 % past a bar); both at
+    P=100,000, fs2 tick by tick from the CPU's state (the kernel's tick
+    before the resample); both chunked kernels, one chunk of C=16 at P=800 and
+    1,024 under the production bars, and the motion chunk's per-tick
+    estimates; the phase's seconds;
+28. the slip forensics (``eval.diagnose_slip``): the online fs2 + ICP +
+    adaptive loop at seed 3 under slip, N=100, twice bit for bit, every
+    key finite, its table by windows of 25 ticks; the corridor JdeRobot
+    trace's motion-only slip row (``replay_chunked`` at N=100,000, C=8,
+    rng 0) and its oracle tick by tick, every key finite, the engine run
+    again bit for bit, the two odometry sequences parting only where their
+    command pairing does, the table; the phase's seconds;
+29. ``io.make_jderobot_trace``: both committed traces of
+    ``data/jderobot/`` recorded again through ``SimHAL``, byte for byte;
+    the phase's seconds.
 
 Any failure raises.  The card's name and power limit come on the line
 before the kernels' JSON summary (launches of each main path's first run
@@ -1730,43 +1756,31 @@ def segment_sum_measure(inputs):
     return rows
 
 
-def gauge_error(gt, poses):
-    import numpy as np
-
-    from fastslam_tpu_torch.eval.metrics import align_se2
-
-    est = np.asarray(poses.cpu() if hasattr(poses, "cpu") else poses)[:, :2]
-    return float(np.linalg.norm(align_se2(gt[:, :2], est) - gt[:, :2], axis=1).mean())
-
-
 def phase21_config5(card):
-    """(a) BASELINE config #5: the 1.1M-landmark graph optimized on map
-    meshes of 4 and 1 shards of the card."""
+    """(a) BASELINE config #5 through ``eval.backend_1m.run`` (the world
+    built and aligned once), its 1.1M-landmark graph optimized on map meshes
+    of 4 and 1 shards of the card."""
+    import os
+
     import numpy as np
     import torch
 
     from fastslam_tpu_torch.backend import distributed
+    from fastslam_tpu_torch.eval import backend_1m
     from fastslam_tpu_torch.parallel import dryrun
     from fastslam_tpu_torch.parallel.mesh import make_map_mesh
     from fastslam_tpu_torch.utils.profiling import EventMarks
 
     from fastslam_tpu_torch.probes.segment_sum_turns import (
-        CONFIG5_KEYFRAMES, CONFIG5_LANDMARKS, config5_graph, config5_sums,
+        CONFIG5_KEYFRAMES, CONFIG5_LANDMARKS, config5_sums,
     )
 
-    g, gt, ainfo, host_s = config5_graph(DEVICE)
-    n_lm, n_f = int(g.lm_valid.sum()), int(g.obs_valid.sum())
-    if abs(n_lm - CONFIG5_LANDMARKS) > 0.03 * CONFIG5_LANDMARKS:
-        raise AssertionError(f"config #5: {n_lm} landmarks built for {CONFIG5_LANDMARKS}")
-    gs, dropped = distributed.shard_pose_graph(g, SHARDS)
-    if dropped:
-        raise AssertionError(f"config #5: {dropped} factors dropped at {SHARDS} shards")
-    err0 = distributed.total_error_host(gs.poses, gs.landmarks[:, 0], gs.landmarks[:, 1], gs)
-    phase(21, f"config #5 graph: {n_lm} landmarks ({CONFIG5_LANDMARKS} placed), {n_f} "
-              f"factors, K={CONFIG5_KEYFRAMES}, capacities {g.landmarks.shape[0]} / "
-              f"{g.obs_kf.shape[0]}, no factor dropped at {SHARDS} shards; host seconds: "
-              f"world {host_s['world']:.2f}, consensus align {host_s['align']:.2f} "
-              f"({ainfo['n_registered_pairs']} pairs registered), build {host_s['build']:.2f}")
+    def want_launches(launches, shards):
+        want = {k: 0 for k in launches}
+        want["segment_sum"] = BACKEND_SUMS * shards * BACKEND_ITERS
+        if launches != want:
+            raise AssertionError(f"config #5 at S={shards}: launches {launches}, "
+                                 f"expected {want}")
 
     def run(shards):
         marks = EventMarks(DEVICE)
@@ -1774,27 +1788,40 @@ def phase21_config5(card):
         out, launches, wall = zeroed_run(lambda: distributed.optimize_sharded(
             g, make_map_mesh([DEVICE] * shards), num_iters=BACKEND_ITERS,
             damping=BACKEND_DAMPING, marks=marks))
-        want = {k: 0 for k in launches}
-        want["segment_sum"] = BACKEND_SUMS * shards * BACKEND_ITERS
-        if launches != want:
-            raise AssertionError(f"config #5 at S={shards}: launches {launches}, "
-                                 f"expected {want}")
+        want_launches(launches, shards)
         return out, launches, wall, marks.stage_ms(), torch.cuda.max_memory_allocated()
 
-    (poses, lms, err), launches, wall, stages, peak = run(SHARDS)
-    before, after = gauge_error(gt, g.poses), gauge_error(gt, poses)
-    if not (np.isfinite(err) and err < err0 and after < 0.6 * before):
-        raise AssertionError(f"config #5: error {err0:.6e} -> {err:.6e}, gauge-aligned "
-                             f"keyframe error {before:.4f} -> {after:.4f} m")
+    state, marks = {}, EventMarks(DEVICE)
+    out, launches, _ = zeroed_run(lambda: backend_1m.run(
+        CONFIG5_LANDMARKS, k=CONFIG5_KEYFRAMES, iters=BACKEND_ITERS, shards=SHARDS,
+        device=DEVICE, marks=marks, state=state))
+    want_launches(launches, SHARDS)
+    g, gt, poses, lms, err = (state[k] for k in ("graph", "gt", "poses", "landmarks", "err"))
+    phase(21, f"config #5 graph (eval.backend_1m.run): {out['n_landmarks_built']} landmarks "
+              f"({CONFIG5_LANDMARKS} placed), {out['n_factors']} factors, "
+              f"K={CONFIG5_KEYFRAMES}, capacities {out['lm_capacity']} / "
+              f"{out['factor_capacity']}, no factor dropped at {SHARDS} shards; host seconds: "
+              f"world {out['world_gen_seconds']:.2f}, consensus align "
+              f"{out['align_seconds']:.2f} ({out['align_pairs_registered']} pairs registered), "
+              f"build {out['build_seconds']:.2f}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "eval_results", "backend_1m.json")) as f:
+        broken = backend_1m.check(out, json.load(f))
+    if broken:
+        raise AssertionError(f"config #5: {'; '.join(broken)}")
+    stages = marks.stage_ms()
+    before = out["mean_keyframe_error_before_gauge_aligned_m"]
+    after = out["mean_keyframe_error_after_gauge_aligned_m"]
     iter_ms = sum(stages.values()) / BACKEND_ITERS
     split = ", ".join(f"{k} {v / BACKEND_ITERS:.2f}" for k, v in stages.items())
     phase(21, f"optimize_sharded S={SHARDS} shards of {card}, {BACKEND_ITERS} GN iterations, "
-              f"damping {BACKEND_DAMPING}: error {err0:.6e} -> {err:.6e}, gauge-aligned "
-              f"keyframe error {before:.4f} -> {after:.4f} m (bar 0.6x); {iter_ms:.2f} ms per "
+              f"damping {BACKEND_DAMPING}: error {out['total_error_before']:.6e} -> {err:.6e}, "
+              f"gauge-aligned keyframe error {before:.4f} -> {after:.4f} m (bar 0.6x; the "
+              f"JAX artifact's within 0.05 + 0.25x); {iter_ms:.2f} ms per "
               f"iteration (CUDA events; per iteration: {split}; schur includes the psum and "
-              f"the pose system, cross is the cross term); wall {wall:.2f} s; "
-              f"{launches['segment_sum'] / BACKEND_ITERS:.0f} segment_sum launches per "
-              f"iteration; peak device memory {peak / 1e9:.3f} GB")
+              f"the pose system, cross is the cross term); wall {out['optimize_seconds']:.2f} "
+              f"s; {launches['segment_sum'] / BACKEND_ITERS:.0f} segment_sum launches per "
+              f"iteration; peak device memory {out['peak_device_memory_gb']:.3f} GB")
     (p2, l2, e2), _, wall2, stages2, _ = run(SHARDS)
     if not (torch.equal(p2, poses) and torch.equal(l2, lms) and e2 == err):
         raise AssertionError("config #5: a second S=4 run differs")
@@ -2839,6 +2866,111 @@ def phase25(card):
     return launches
 
 
+def check_parity_line(r):
+    """One check's result of ``probes.check_parity`` as a phase line."""
+    diffs = ", ".join(
+        f"{k} {'max' if 'max' in d else 'q99'} {d.get('max', d.get('q99')):.3e} (bar "
+        f"{d['bar']:g}" + (f"; {100 * d['over']:.2f} % past it)" if "over" in d else ")")
+        for k, d in r["diffs"].items())
+    if "flip_frac" in r:
+        head = f"{100 * r['flip_frac']:.2f} % count flips (bar {100 * r['flip_bar']:g} %)"
+    else:
+        head = f"counts {'equal' if r['cnt_equal'] else 'DIFFER'}"
+    est = r.get("estimates")
+    tail = (f"; per-tick estimates max {est['max']:.3e} (bar {est['bar']:g}), "
+            f"{est['same_pick']} ticks the same particle, {est['ties']} ties" if est else "")
+    return (f"{r['check']} (row {r['row']}, {r['kernel']}, {r['form']}) P={r['particles']} "
+            f"L={r['L']} M={r['M']}, {r['ticks']} ticks: {head}; {diffs}{tail}; launches "
+            f"{r['launches']}: {'ok' if r['ok'] else 'BROKEN'}")
+
+
+def phase27(card):
+    """``probes.check_parity``: the card's filter kernels against the CPU
+    plain path at ``scripts/check_pallas_parity.py``'s bars."""
+    from fastslam_tpu_torch.probes import check_parity
+
+    t0 = time.perf_counter()
+    results = check_parity.run(DEVICE, print_lines=False)
+    for r in results:
+        phase(27, check_parity_line(r))
+    broken = [f"{r['check']} P={r['particles']}" for r in results if not r["ok"]]
+    if broken:
+        raise AssertionError(f"check_parity: bars broken: {', '.join(broken)}")
+    phase(27, f"check_parity on {card}: {len(results)} checks within the reference's bars "
+              f"in {time.perf_counter() - t0:.1f} s")
+
+
+def finite_record(tag, rec):
+    import numpy as np
+
+    bad = [k for k, v in rec.items() if not np.all(np.isfinite(np.asarray(v, float)))]
+    if bad:
+        raise AssertionError(f"{tag}: keys not finite: {bad}")
+
+
+def phase28(card):
+    """``eval.diagnose_slip``: the online form at seed 3 under slip, N=100,
+    twice, and the trace form on the corridor trace at rng 0 with its
+    oracle, its engine again."""
+    import os
+
+    from fastslam_tpu_torch.eval import diagnose_slip
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    corridor = os.path.join(root, "data", "jderobot", "corridor_seed3_300.jsonl")
+
+    def run():
+        online = [diagnose_slip.run_instrumented(3, particles=100, device=DEVICE)
+                  for _ in range(2)]
+        trace = diagnose_slip.run_trace(corridor, 0, device=DEVICE)
+        again = diagnose_slip.run_trace(corridor, 0, device=DEVICE, oracle=False)
+        return online, trace, again
+
+    (online, trace, again), launches, _ = zeroed_run(run)
+    finite_record("diagnose_slip online", online[0])
+    if online[0] != online[1]:
+        raise AssertionError("diagnose_slip online: a second run differs")
+    diagnose_slip.summarize(online[0], f"seed 3 slip N=100 on {card}")
+    finite_record("diagnose_slip --trace", trace)
+    engine = {k: v for k, v in trace.items() if not k.startswith("oracle")}
+    if engine != again:
+        raise AssertionError("diagnose_slip --trace: a second engine run differs")
+    parts = diagnose_slip.parting_ticks(trace)
+    if parts["draws"] or parts["differ"] != parts["pairing"]:
+        raise AssertionError(f"diagnose_slip --trace: the odometry parts off the pairing "
+                             f"rule: {parts}")
+    diagnose_slip.print_trace_table(
+        diagnose_slip.trace_windows(trace),
+        f"corridor_seed3_300 rng 0 on {card}: engine ATE {trace['engine_ate']:.4f}, "
+        f"oracle ATE {trace['oracle_ate']:.4f}")
+    phase(28, f"diagnose_slip on {card}: online ATE {online[0]['ate']:.4f} m twice bit for "
+              f"bit, every key finite; --trace corridor_seed3_300 rng 0: engine ATE "
+              f"{trace['engine_ate']:.4f} m (again bit for bit), oracle {trace['oracle_ate']:.4f}"
+              f" m, the odometry parting on {len(parts['pairing'])} ticks, all by the pairing "
+              f"rule; launches {({k: n for k, n in launches.items() if n})}; "
+              f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase29():
+    """``io.make_jderobot_trace``: both committed traces recorded again,
+    byte for byte."""
+    import os
+
+    from fastslam_tpu_torch.io import make_jderobot_trace
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name, flags in make_jderobot_trace.COMMITTED.items():
+        out = make_jderobot_trace.check(os.path.join(root, "data", "jderobot", name), **flags)
+        if not out["equal"]:
+            raise AssertionError(f"make_jderobot_trace: {name} differs ({out})")
+        phase(29, f"make_jderobot_trace {flags or 'defaults'}: {name} byte for byte "
+                  f"({out['ticks']} ticks, sha256 {out['sha256'][:16]})")
+    phase(29, f"both traces in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2928,6 +3060,9 @@ def main() -> int:
     paths["accuracy"] = phase25(card)
     paths["ring_4x1"], err_4x1, times_4x1 = phase26(mp_workers)
     errs[PEERS] = max(errs[PEERS], err_4x1)
+    phase27(card)
+    paths["slip_diagnosis"] = phase28(card)
+    phase29()
     # the cross-process exchange: phase 23's times (2 x 2, process 0, the
     # mean of the two turns), no library call (NCCL takes no two ranks on one
     # card); the bound is the whole ring's bytes on the one card

@@ -802,6 +802,23 @@ def odometry(log, config: FastSLAMConfig):
     return rots, trans
 
 
+def slipped_odometry(log, config: FastSLAMConfig, odometry_noise=(0.0, 0.0),
+                     odometry_noise_seed: int = 123):
+    """:func:`odometry` with wheel slip: ``odometry_noise`` = (rotation,
+    translation) std-devs, one draw from ``odometry_noise_seed`` per tick on
+    its active component.  The odometry :func:`replay_chunked` feeds the
+    filter, before any ICP refinement."""
+    rots, trans = odometry(log, config)
+    if odometry_noise != (0.0, 0.0):
+        odo_rng = np.random.default_rng(odometry_noise_seed)
+        for t in range(len(rots)):
+            if rots[t] != 0.0:
+                rots[t] += odo_rng.normal(0.0, odometry_noise[0])
+            if trans[t] != 0.0:
+                trans[t] += odo_rng.normal(0.0, odometry_noise[1])
+    return rots, trans
+
+
 class ICPOdometry(NamedTuple):
     """What the batched ICP stage hands the filter, per tick of the log."""
 
@@ -930,15 +947,8 @@ def replay_chunked(log, config: FastSLAMConfig, chunk_size: int = 8,
     rb = torch.stack([m.range_bearing for m in ms])          # [T, M, 2]
     mv = torch.stack([m.valid for m in ms])                  # [T, M]
 
-    rots, trans = odometry(log, config)
+    rots, trans = slipped_odometry(log, config, odometry_noise, odometry_noise_seed)
     v_active = np.concatenate([[False], np.asarray(log.cmd_v[:-1], np.float64) != 0])
-    if odometry_noise != (0.0, 0.0):
-        odo_rng = np.random.default_rng(odometry_noise_seed)
-        for t in range(t_total):
-            if rots[t] != 0.0:
-                rots[t] += odo_rng.normal(0.0, odometry_noise[0])
-            if trans[t] != 0.0:
-                trans[t] += odo_rng.normal(0.0, odometry_noise[1])
 
     floors = None
     if config.use_icp_proposal:

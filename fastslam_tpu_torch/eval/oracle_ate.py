@@ -51,33 +51,18 @@ def start_frame(gt_poses: np.ndarray) -> np.ndarray:
                      d[:, 2]], axis=-1)
 
 
-def run_oracle(log, cfg: FastSLAMConfig, seed: int = 0, odometry_noise=(0.0, 0.0),
-               odometry_noise_seed: int = 123, *, device="cuda") -> np.ndarray:
-    """Replay the reference equations over ``log``; returns the ``[T, 3]``
-    estimates.
-
-    ``seed`` seeds the numpy generator of the particles' motion noise and
-    the resample offset.  ``odometry_noise`` corrupts the (rotation,
-    translation) odometry the filter sees as ``run_driver`` does
-    (per-component gaussian, only on active ticks, from
-    ``odometry_noise_seed``), so oracle and engine see the same slip
-    magnitude; the draws land on other ticks, since the oracle keeps the
-    reference's command/laser pairing (the command of the same tick).
-    During the first ``cfg.warmup_iterations`` ticks the estimate is dead
-    reckoning, as the reference's control loop does.
-    """
-    device = check_device(device)
-    rng = np.random.default_rng(seed)
+def oracle_odometry(log, cfg: FastSLAMConfig, odometry_noise=(0.0, 0.0),
+                    odometry_noise_seed: int = 123):
+    """The ``[T]`` (rotation, translation) odometry :func:`run_oracle` feeds
+    the reference equations: the command of the same tick (the reference's
+    command/laser pairing), rotation XOR translation with the velocity fudge
+    on translation, and ``odometry_noise`` = (rotation, translation)
+    std-devs of wheel slip, one draw from ``odometry_noise_seed`` per tick
+    on its active component."""
     odo_rng = np.random.default_rng(odometry_noise_seed)
-
-    particles = oracle.make_particles(cfg.num_particles)
-    robot = np.zeros(3)
+    rots, trans = np.zeros(len(log)), np.zeros(len(log))
     prev_ts = None
-    est = []
     for t in range(len(log)):
-        scan = LaserScan(log.scans[t], log.min_range, log.max_range,
-                         float(log.timestamps[t]))
-        pts, valid = scan.to_points()
         v, w = float(log.cmd_v[t]), float(log.cmd_w[t])
         ts = float(log.timestamps[t])
         dt = 0.0 if prev_ts is None else ts - prev_ts
@@ -91,6 +76,40 @@ def run_oracle(log, cfg: FastSLAMConfig, seed: int = 0, odometry_noise=(0.0, 0.0
                 rotation += odo_rng.normal(0.0, odometry_noise[0])
             if translation != 0.0:
                 translation += odo_rng.normal(0.0, odometry_noise[1])
+        rots[t], trans[t] = rotation, translation
+    return rots, trans
+
+
+def run_oracle(log, cfg: FastSLAMConfig, seed: int = 0, odometry_noise=(0.0, 0.0),
+               odometry_noise_seed: int = 123, *, device="cuda") -> np.ndarray:
+    """Replay the reference equations over ``log``; returns the ``[T, 3]``
+    estimates.
+
+    ``seed`` seeds the numpy generator of the particles' motion noise and
+    the resample offset.  ``odometry_noise`` corrupts the (rotation,
+    translation) odometry the filter sees as ``run_driver`` does
+    (per-component gaussian, only on active ticks, from
+    ``odometry_noise_seed``; :func:`oracle_odometry`).  Where every tick
+    after the first has one active component on both sides, as on the
+    accuracy matrix's logs, oracle and engine get the same draw on the same
+    tick; their odometry parts only where the oracle's command/laser
+    pairing (the reference's: the command of the same tick) differs from
+    the engine's (the previous tick's command), on the ticks where the
+    command changes.  During the first ``cfg.warmup_iterations`` ticks the
+    estimate is dead reckoning, as the reference's control loop does.
+    """
+    device = check_device(device)
+    rng = np.random.default_rng(seed)
+    rots, trans = oracle_odometry(log, cfg, odometry_noise, odometry_noise_seed)
+
+    particles = oracle.make_particles(cfg.num_particles)
+    robot = np.zeros(3)
+    est = []
+    for t in range(len(log)):
+        scan = LaserScan(log.scans[t], log.min_range, log.max_range,
+                         float(log.timestamps[t]))
+        pts, valid = scan.to_points()
+        rotation, translation = float(rots[t]), float(trans[t])
 
         ms = scan_to_measurements(torch.from_numpy(pts).to(device),
                                   torch.from_numpy(valid).to(device), cfg)

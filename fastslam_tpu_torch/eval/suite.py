@@ -358,6 +358,9 @@ SECTION_TITLES = {
 }
 ORDER = ["base", "slip", "noise", "scale", "scale_cpu", "jderobot", "jderobot_cpu"]
 
+# EVAL_TORCH.md from this heading on is written by hand (findings such as
+# eval/diagnose_slip.py's); --render keeps it
+KEPT = "## Findings"
 NOTES = """
 The bound is EVAL.md's "match reference ATE": every production row's mean
 sits at or below the mean of the oracle row above it in its table (clean,
@@ -419,7 +422,8 @@ def load_sections(results_dir):
 
 def render(out, *, results_dir=RESULTS_DIR, jax_dir=JAX_RESULTS_DIR):
     """Render ``out`` from every section JSON in ``results_dir``, each row
-    beside the JAX suite's mean of the same row in ``jax_dir``."""
+    beside the JAX suite's mean of the same row in ``jax_dir``; the part of
+    an existing ``out`` from the heading ``KEPT`` on stays as it is."""
     lines = [
         "# EVAL_TORCH: accuracy matrix of the PyTorch/CUDA port",
         "",
@@ -463,6 +467,11 @@ def render(out, *, results_dir=RESULTS_DIR, jax_dir=JAX_RESULTS_DIR):
                 f"{'—' if want is None else f'{want:.3f}'} | {verdict} | "
                 f"{', '.join(f'{k} {v}' for k, v in launches.items()) or '—'} |")
     lines.append(NOTES)
+    if os.path.exists(out):
+        with open(out) as f:
+            old = f.read().splitlines()
+        if KEPT in old:
+            lines += [""] + old[old.index(KEPT):]
     with open(out, "w") as f:
         f.write("\n".join(lines) + "\n")
 

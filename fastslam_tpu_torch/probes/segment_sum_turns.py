@@ -31,35 +31,22 @@ import os
 import re
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 # BASELINE config #5 (tests/test_backend_scale.py:157-215) as chip_smoke.py
 # phase 21 builds it
 CONFIG5_LANDMARKS, CONFIG5_KEYFRAMES = 1_100_000, 1024
-CONFIG5_GRAPH = dict(association_gate=0.5, max_landmarks=1 << 21, max_factors=1 << 23,
-                     obs_sigma_r=0.01, obs_sigma_b=1e-3, odo_sigma_xy=0.05,
-                     odo_sigma_theta=0.001)
 INPUTS = Path("build") / "segment_sum_turns" / "inputs.pt"
 
 
 def config5_graph(device):
-    """The 1.1M-landmark survey graph on ``device``, its ground truth, the
-    consensus alignment's info, and the host seconds of each stage."""
-    from fastslam_tpu_torch.backend.alignment import consensus_align
-    from fastslam_tpu_torch.backend.builder import build_pose_graph
-    from fastslam_tpu_torch.backend.survey import survey_world_chunked
+    """The 1.1M-landmark survey graph on ``device`` (``eval/backend_1m.py:
+    build_graph``), its ground truth, the consensus alignment's info, and
+    the host seconds of each stage."""
+    from fastslam_tpu_torch.eval.backend_1m import build_graph
 
-    t0 = time.perf_counter()
-    noisy, obs, gt, _ = survey_world_chunked(CONFIG5_LANDMARKS, k=CONFIG5_KEYFRAMES,
-                                             sigma_xy=0.05, seed=1)
-    t1 = time.perf_counter()
-    aligned, info = consensus_align(noisy, obs, sigma_xy=0.05, sigma_theta=0.001)
-    t2 = time.perf_counter()
-    g = build_pose_graph(noisy, obs, association_poses=aligned, device=device,
-                         **CONFIG5_GRAPH)
-    t3 = time.perf_counter()
-    return g, gt, info, {"world": t1 - t0, "align": t2 - t1, "build": t3 - t2}
+    g, gt, _, info, seconds = build_graph(CONFIG5_LANDMARKS, CONFIG5_KEYFRAMES, device)
+    return g, gt, info, seconds
 
 
 def config5_sums(g, shards, device):

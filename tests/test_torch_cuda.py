@@ -1232,6 +1232,30 @@ def test_map_merge_on_the_card_matches_cpu(device):
         assert torch.equal(getattr(m, field).cpu(), getattr(m_cpu, field)), field
 
 
+
+def test_check_parity_holds_the_card_to_the_cpu(device):
+    """``probes.check_parity`` at the script's sizes and a small width tick
+    by tick: every check within the reference's bars, each card side
+    launching its kernel."""
+    from fastslam_tpu_torch.probes import check_parity
+
+    todo = [c for c in check_parity.checks(full=None)] + [("motion", 4096, "ticks"),
+                                                          ("fs2", 4096, "ticks")]
+    results = check_parity.run(device, todo=todo, print_lines=False)
+    assert [r["ok"] for r in results] == [True] * len(todo), results
+    assert all(r["launches"][r["kernel"]] >= 1 for r in results)
+
+
+def test_diagnose_slip_repeats_on_the_card(device):
+    """The online form twice, bit for bit, every key finite."""
+    from fastslam_tpu_torch.eval import diagnose_slip
+
+    a, b = (diagnose_slip.run_instrumented(3, particles=100, ticks=160, device=device)
+            for _ in range(2))
+    assert a == b
+    assert all(np.all(np.isfinite(np.asarray(v, float))) for v in a.values())
+
+
 if __name__ == "__main__":
     import os
     import sys

@@ -330,6 +330,21 @@ def test_section_rows_are_jax_rows(section, device, stored, monkeypatch):
                if not name.startswith("reference"))
 
 
+def test_render_keeps_the_hand_written_findings(tmp_path):
+    table = suite.Table(["reference equations (NumPy oracle, N=50)"])
+    table.rows["reference equations (NumPy oracle, N=50)"] = [[0.15]]
+    suite.save("base", [3], table, rngs=[0], device_tag="card", results_dir=str(tmp_path))
+    out = tmp_path / "EVAL_TORCH.md"
+    suite.render(str(out), results_dir=str(tmp_path))
+    findings = f"{suite.KEPT}\n\n### F6 (b)\n\n| tick | err |\n|---|---|\n| 0-24 | 0.023 |\n"
+    out.write_text(out.read_text() + "\n" + findings)
+    for _ in range(2):
+        suite.render(str(out), results_dir=str(tmp_path))
+        text = out.read_text()
+        assert text.endswith(findings) and text.count(suite.KEPT) == 1
+        assert "| reference equations (NumPy oracle, N=50) |" in text
+
+
 def test_save_and_render(tmp_path):
     """The JAX suite's JSON layout, the per-seed means over rngs, and JAX's
     mean beside each row of the rendered table."""
