@@ -227,7 +227,34 @@ Phases, one line each (or more):
     command pairing does, the table; the phase's seconds;
 29. ``io.make_jderobot_trace``: both committed traces of
     ``data/jderobot/`` recorded again through ``SimHAL``, byte for byte;
-    the phase's seconds.
+    the phase's seconds;
+30. ``probes.step`` (the counterpart of ``scripts/bench_step.py``) at
+    P=100,000, L=64, M=16: K=50 steps captured in one CUDA graph (each
+    deciding its resample on the device) for ``planes``,
+    ``planes+fusedonly``, ``chunked16+prod``, ``chunked16+fs2+prod``,
+    ``planes+frontend`` and ``scan``; each graph's K steps equal K eager
+    steps (the host deciding) bit for bit, from the same state and draws,
+    and again after the timed repetitions; ms per tick of the graph and
+    the eager form, the capture's seconds;
+31. ``probes.compare`` (``scripts/bench_compare.py``): the blocks step with
+    the per-tick kernel and with the plain measurement loop, 20 steps
+    after 3 warm ones; rows 1–4 against their plain versions on one shared
+    state, every pair 0 apart;
+32. ``probes.e2e_attribution``: the K-sweep (16, 64, 192) of frontend +
+    planes step in one graph each and its linear fit, the frontend and the
+    filter alone at K=192, and ``SLAMRunner.tick_fused`` over the same 192
+    scans (host-clock median and 90th percentile, device ms per replay);
+33. ``probes.collective_bytes`` on 8 shards of the card, 8,192 particles
+    each: per resampler (whole-state gather, halo, ring) the ops and bytes
+    of a tick without a resample and of the resample; the whole-state
+    gather's bytes equal P (3 + 1 + 6 L + 1) 4 from the shapes, and the
+    ring resampler launched the exchange kernel;
+34. ``probes.scaling``: the blocks and the chunked sharded steps at 1, 2,
+    4 and 8 shards of the card, 12,500 particles each, each S's first step
+    equal to one shard's bit for bit; ms per tick and the efficiency
+    against S = 1.  Each of phases 30–34 runs with the launch counters set
+    to 0 just before (the ``step``, ``compare``, ``e2e_attribution``,
+    ``collective_bytes`` and ``scaling`` paths of the kernels line).
 
 Any failure raises.  The card's name and power limit come on the line
 before the kernels' JSON summary (launches of each main path's first run
@@ -2971,6 +2998,137 @@ def phase29():
     phase(29, f"both traces in {time.perf_counter() - t0:.1f} s")
 
 
+def step_line(rec):
+    """One ``probes.step`` record as a phase line."""
+    return (f"{rec['path']}: K={rec['k']} steps in one graph, {rec['step_ms']:.4f} ms per "
+            f"tick ({rec['updates_per_s']:,} updates/s"
+            + (f", {rec['frames_per_s']} frames/s" if "frames_per_s" in rec else "")
+            + f"), eager {rec['eager_step_ms']:.4f} ms per tick; graph = eager bit for bit; "
+            f"build and capture {rec['build_and_capture_s']} s; final pose x "
+            f"{rec['final_pose_x']}; launches per replay {rec['launches_per_replay']}")
+
+
+def phase30():
+    """``probes.step``: K steps in one captured graph, each path held to its
+    eager run bit for bit (the probe raises otherwise)."""
+    from fastslam_tpu_torch.probes import step
+
+    paths = (["--planes"], ["--fused-only"], ["--chunk", str(C)], ["--chunk", str(C), "--fs2"],
+             ["--planes", "--with-frontend"], [])
+
+    def run():
+        out = []
+        for flags in paths:
+            rec = step.run(step.parse(flags))
+            rec.pop("_")
+            torch_sync()
+            out.append(rec)
+        return out
+
+    recs, launches, wall = zeroed_run(run)
+    for rec in recs:
+        if not rec["graph"] or rec["draws"] != "eager_static":
+            raise AssertionError(f"probes.step {rec['path']}: not timed as a graph ({rec})")
+        phase(30, step_line(rec))
+    phase(30, f"probes.step: {len(recs)} paths in {wall:.1f} s; launches "
+              f"{({k: n for k, n in launches.items() if n})}")
+    return launches
+
+
+def torch_sync():
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase31():
+    """``probes.compare``: the blocks step with and without the kernel, and
+    rows 1-4 against their plain versions, every pair 0 apart."""
+    from fastslam_tpu_torch.probes import compare
+
+    rec, launches, wall = zeroed_run(lambda: compare.run(DEVICE, plain_steps=1))
+    for variant, r in rec["blocks_step"].items():
+        phase(31, f"blocks step, {variant}: {r['step_ms']:.4f} ms per step, "
+                  f"{r['updates_per_s']:,} updates/s, pose {r['pose']}, lm_count[0] "
+                  f"{r['lm_count0']}")
+    for r in rec["planes_kernels"]:
+        if r["max_abs_diff"] != 0.0:
+            raise AssertionError(f"probes.compare row {r['row']}: {r['kernel']} differs from "
+                                 f"its plain version by {r['max_abs_diff']}")
+        phase(31, f"row {r['row']} {r['kernel']}: {r['ms']:.4f} ms per tick, plain "
+                  f"{r['plain_ms']:.4f} ({r['updates_per_s']:,} vs {r['plain_updates_per_s']:,} "
+                  f"updates/s), max |diff| 0")
+    phase(31, f"probes.compare in {wall:.1f} s; launches "
+              f"{({k: n for k, n in launches.items() if n})}")
+    return launches
+
+
+def phase32():
+    """``probes.e2e_attribution``: the K-sweep, the frontend and the filter
+    alone, the fused tick."""
+    import math
+
+    from fastslam_tpu_torch.probes import e2e_attribution
+
+    rec, launches, wall = zeroed_run(lambda: e2e_attribution.run(DEVICE, out_path=None))
+    tick = rec["fused_tick"]
+    numbers = [*rec["e2e_ms_per_tick_by_k"].values(), rec["per_tick_ms_asymptotic"],
+               rec["frontend_ms_per_tick"], rec["filter_ms_per_tick"], tick["wall_ms_median"],
+               tick["device_ms_per_replay"]]
+    if not all(math.isfinite(x) and x > 0 for x in numbers):
+        raise AssertionError(f"probes.e2e_attribution: a time is not positive ({rec})")
+    if tick["graph_replays"] != tick["ticks"] - 1:
+        raise AssertionError(f"probes.e2e_attribution: {tick['graph_replays']} replays")
+    phase(32, f"e2e ms per tick by K {rec['e2e_ms_per_tick_by_k']} (capture s "
+              f"{rec['build_and_capture_s_by_k']}): asymptote {rec['per_tick_ms_asymptotic']} "
+              f"ms, per-replay constant {rec['per_dispatch_overhead_ms']} ms; frontend "
+              f"{rec['frontend_ms_per_tick']} ms, filter {rec['filter_ms_per_tick']} ms per tick")
+    phase(32, f"tick_fused over {tick['ticks']} scans: median {tick['wall_ms_median']} ms, "
+              f"p90 {tick['wall_ms_p90']} ms (host clock), device {tick['device_ms_per_replay']} "
+              f"ms per replay, {tick['gap_to_asymptote_ms']} ms past the asymptote; "
+              f"{wall:.1f} s; launches {({k: n for k, n in launches.items() if n})}")
+    return launches
+
+
+def phase33():
+    """``probes.collective_bytes`` on 8 shards of the card."""
+    from fastslam_tpu_torch.probes import collective_bytes
+
+    shards, per = 8, 8192
+    rec, launches, wall = zeroed_run(lambda: collective_bytes.run(DEVICE, shards, per, L, M))
+    want = shards * per * (3 + 1 + 6 * L + 1) * 4
+    got = rec["gspmd_resample"]["whole_state_bytes"]
+    if got != want:
+        raise AssertionError(f"collective tally: whole-state gather {got} B, shapes give {want}")
+    if not launches.get(RING):
+        raise AssertionError("probes.collective_bytes: the ring resampler launched no exchange")
+    for name in collective_bytes.RESAMPLERS:
+        r = rec[name]
+        phase(33, f"{name}: {r['collective_ops']} ops ({r['scalar_ops']} scalar, "
+                  f"{r['scalar_bytes']} B), bulk {r['bulk_bytes_total_mb']} MB "
+                  f"(no resample {r['branches']['no_resample']['bulk_bytes_total_mb']}, "
+                  f"resample {r['branches']['resample']['bulk_bytes_total_mb']}); by site "
+                  f"{r['by_site']}")
+    phase(33, f"whole-state gather {got} B = P (3 + 1 + 6 L + 1) 4 at {shards} x {per}; "
+              f"{wall:.1f} s; launches {({k: n for k, n in launches.items() if n})}")
+    return launches
+
+
+def phase34():
+    """``probes.scaling``: both sharded steps at 1-8 shards of the card."""
+    from fastslam_tpu_torch.probes import scaling
+
+    rec, launches, wall = zeroed_run(lambda: scaling.run(DEVICE, print_rows=False))
+    for r in rec["scaling"] + rec["scaling_chunked"]:
+        phase(34, f"{r['step']} S={r['devices']} P={r['particles']}: {r['step_ms']:.4f} ms per "
+                  f"tick, {r['frames_per_s']} frames/s, efficiency "
+                  f"{r['weak_scaling_efficiency']}, equal to one shard bit for bit")
+    phase(34, f"{scaling.LABEL}; {wall:.1f} s; launches "
+              f"{({k: n for k, n in launches.items() if n})}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3063,6 +3221,11 @@ def main() -> int:
     phase27(card)
     paths["slip_diagnosis"] = phase28(card)
     phase29()
+    paths["step"] = phase30()
+    paths["compare"] = phase31()
+    paths["e2e_attribution"] = phase32()
+    paths["collective_bytes"] = phase33()
+    paths["scaling"] = phase34()
     # the cross-process exchange: phase 23's times (2 x 2, process 0, the
     # mean of the two turns), no library call (NCCL takes no two ranks on one
     # card); the bound is the whole ring's bytes on the one card

@@ -1507,9 +1507,12 @@ def ring_halo_exchange(blocks):
 
     Returns ``(lefts, rights)``: lists of S new blocks, ``lefts[s]`` the
     block of shard ``s - 1`` and ``rights[s]`` that of shard ``s + 1``
-    (mod S).  At S = 1 both are copies of the one block.
+    (mod S).  At S = 1 both are copies of the one block.  An open
+    ``parallel/collectives.py:tally`` records the call as two ring shifts of
+    one block, as the TPU kernel's two remote copies.
     """
     blocks = list(blocks)
+    _record_ring_shifts(blocks)
     if blocks and blocks[0].device.type == "cpu":
         return ring_halo_exchange_ref(blocks)
     _check_ring_blocks(blocks)
@@ -1529,6 +1532,15 @@ def ring_halo_exchange(blocks):
     )
     LAUNCHES["ring_halo_exchange"] += 1
     return lefts, rights
+
+
+def _record_ring_shifts(blocks):
+    """The exchange's two ring shifts of one block each, in an open tally."""
+    from fastslam_tpu_torch.parallel.collectives import record
+
+    if blocks:
+        for _ in range(2):
+            record("ppermute", blocks[0].numel() * blocks[0].element_size())
 
 
 def _check_exchange_blocks(blocks):
@@ -1910,11 +1922,15 @@ def ring_halo_exchange_peers(blocks, group):
     the caller consumes them before that, on the same stream.  The call
     enqueues :func:`ring_peer_schedule`'s waits on the current stream around
     its one launch.  A refused card, a failed map or launch, or a wait past
-    ``PEER_TIMEOUT_S`` raises, and the ring is refused from then on.
+    ``PEER_TIMEOUT_S`` raises, and the ring is refused from then on.  An
+    open ``parallel/collectives.py:tally`` records the call as two ring
+    shifts of one block (on the CPU, the plain version's two ``ppermute``
+    calls record themselves).
     """
     blocks = list(blocks)
     if blocks and blocks[0].device.type == "cpu":
         return ring_halo_exchange_peers_ref(blocks, group)
+    _record_ring_shifts(blocks)
     _check_ring_blocks(blocks)
     device = _require_cuda(*blocks)
     _check_exchange_blocks(blocks)

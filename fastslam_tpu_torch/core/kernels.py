@@ -413,7 +413,8 @@ def fastslam_steps_planes_chunked(state: PlanesState, rotations: torch.Tensor,
                                   translations: torch.Tensor,
                                   measurements: Measurements,
                                   config: FastSLAMConfig, draws: Draws, *,
-                                  proposal_floors=None, evidence_scale=None
+                                  proposal_floors=None, evidence_scale=None,
+                                  on_device: bool = False
                                   ) -> Tuple[PlanesState, torch.Tensor]:
     """C filter ticks in one call of the chunked update (production only),
     with the motion proposal or the FastSLAM 2.0 one.
@@ -424,7 +425,9 @@ def fastslam_steps_planes_chunked(state: PlanesState, rotations: torch.Tensor,
     log-weights, before the boundary resample.  The motion proposal reads
     ``draws.rot``/``draws.trans`` ``[C, P]``, fs2 ``draws.noise``
     ``[C, 3, P]``; ``proposal_floors`` and ``evidence_scale`` (scalars or
-    ``[C]``) feed fs2 only.
+    ``[C]``) feed fs2 only.  ``on_device=True`` decides the boundary
+    resample on the device, as :func:`fastslam_step_planes` does: the call
+    then reads nothing on the host, and leaves the same state bit for bit.
 
     Returns ``(new_state, per-tick poses [C, 3])``.
     """
@@ -436,7 +439,7 @@ def fastslam_steps_planes_chunked(state: PlanesState, rotations: torch.Tensor,
                                      config, draws, proposal_floors=proposal_floors,
                                      evidence_scale=evidence_scale)
     est = chunk_estimates(trajectory)
-    state = _normalize_and_resample(state, draws.u0, config)
+    state = _normalize_and_resample(state, draws.u0, config, on_device=on_device)
     return state, est
 
 
@@ -598,8 +601,10 @@ def update_particles_one(poses, log_weights, lm_mean, lm_cov, lm_count, z, z_val
     app_onehot = (slots == lm_count[:, None]) & do_append[:, None]
     new_mean_pl = torch.stack([new_mu0, new_mu1], dim=-1)
     new_cov_pl = torch.stack([new_a, new_b, new_c, new_d], dim=-1)
-    dc = config.default_landmark_cov
-    app_cov = torch.tensor([dc, 0.0, 0.0, dc], dtype=lm_cov.dtype, device=lm_cov.device)
+    # filled on the device (no host-to-device copy, which a CUDA graph
+    # capture would refuse)
+    app_cov = torch.zeros(4, dtype=lm_cov.dtype, device=lm_cov.device)
+    app_cov[0::3] = config.default_landmark_cov
 
     lm_mean = torch.where(upd_onehot[..., None], new_mean_pl[:, None, :], lm_mean)
     lm_mean = torch.where(app_onehot[..., None], world_obs[:, None, :], lm_mean)
@@ -859,15 +864,20 @@ def propose_and_update(state: FilterState, rotation, translation,
 
 def fastslam_step(state: FilterState, rotation, translation,
                   measurements: Measurements, config: FastSLAMConfig, draws: Draws,
-                  *, proposal_floors=None, evidence_scale=None
+                  *, proposal_floors=None, evidence_scale=None, on_device: bool = False
                   ) -> Tuple[FilterState, torch.Tensor]:
     """One filter tick on the blocks layout: propagate (motion proposal, or
     the FastSLAM 2.0 proposal with ``proposal_floors`` = (xy, theta) and the
     mode dial ``evidence_scale``), per-measurement EKF updates, normalize,
     Neff, conditional systematic resample, argmax pose estimate.  The motion
     draws are ``draws.rot``/``draws.trans`` ``[P]``, the fs2 draws
-    ``draws.noise`` ``[P, 3]``.  Returns ``(new_state, pose [3])``."""
+    ``draws.noise`` ``[P, 3]``.  ``on_device=True`` decides the resample on
+    the device, as :func:`fastslam_step_planes` does: the step then reads
+    nothing on the host (a CUDA graph can capture it, the fs2 proposal
+    included), and leaves the same state bit for bit.  Returns
+    ``(new_state, pose [3])``."""
     state = propose_and_update(state, rotation, translation, measurements, config,
                                draws, proposal_floors, evidence_scale)
-    state = _normalize_and_resample(state, draws.u0, config, resample_state)
+    state = _normalize_and_resample(state, draws.u0, config, resample_state,
+                                    on_device=on_device)
     return state, estimate_pose(state)

@@ -30,6 +30,18 @@ received through it, and the host seconds spent in them (the staging copies
 included; the device is synchronised before the clock starts, so its earlier
 work is not counted).
 
+:func:`tally` records every collective issued inside it, in one process or
+over a group, with the bytes of its result as one shard holds it (the way
+``scripts/collective_bytes.py`` reckons an HLO result type): an
+:func:`all_gather` the whole concatenation, a :func:`psum` one sum (an
+integer sum 8 bytes), a :func:`ppermute` the one tensor each shard receives.
+Beside those it records the re-split of a gathered state into shards
+(``parallel/mesh.py:shard_state``, op ``split``, each shard's slice; XLA
+slices locally and counts none) and the ring exchange kernel's two ring
+shifts of each shard's block (``core/cuda_kernels.py:ring_halo_exchange``
+and its cross-process form).  :func:`site` names the part of a step an op
+belongs to (the whole-state gather, the halo, the ring).
+
 Float reductions over particles (weight normalization, Neff, the argmax
 pose) gather the ``[P]`` vector and call the single-device function, so S
 shards agree with one shard bit for bit.  The JAX package reduces within
@@ -39,8 +51,9 @@ only within rounding.
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -48,6 +61,43 @@ import torch.distributed as dist
 # calls over a process group, bytes this process received through it, and
 # host seconds spent in them (the host clock, staging copies included)
 TRAFFIC = {"calls": 0, "bytes": 0, "seconds": 0.0}
+# the open tallies (lists of op records) and the stack of site names
+_TALLIES: List[list] = []
+_SITES: List[str] = []
+
+
+@contextlib.contextmanager
+def tally() -> Iterator[list]:
+    """Record the collectives issued inside: yields a list that gains one
+    ``{"op", "bytes", "site"}`` per op (``op`` one of ``all_gather``,
+    ``psum``, ``ppermute``, ``split``; ``bytes`` the result one shard holds;
+    ``site`` the innermost :func:`site`, or None)."""
+    ops: list = []
+    _TALLIES.append(ops)
+    try:
+        yield ops
+    finally:
+        _TALLIES.remove(ops)
+
+
+@contextlib.contextmanager
+def site(name: str) -> Iterator[None]:
+    """Name the part of a step the collectives inside belong to."""
+    _SITES.append(name)
+    try:
+        yield
+    finally:
+        _SITES.pop()
+
+
+def record(op: str, nbytes: int) -> None:
+    """Add one op of ``nbytes`` result bytes to every open tally."""
+    for ops in _TALLIES:
+        ops.append({"op": op, "bytes": int(nbytes), "site": _SITES[-1] if _SITES else None})
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def shard_range(shard: int, p_local: int) -> slice:
@@ -96,9 +146,9 @@ def all_gather(tensors: Sequence[torch.Tensor], dim: int = 0, group=None) -> tor
     first shard's device; with ``group``, every process's shards."""
     device = tensors[0].device
     local = torch.cat([t.to(device) for t in tensors], dim=dim)
-    if group is None:
-        return local
-    return torch.cat(_gather_processes(local, group), dim=dim)
+    out = local if group is None else torch.cat(_gather_processes(local, group), dim=dim)
+    record("all_gather", _nbytes(out))
+    return out
 
 
 def psum(values: Sequence[torch.Tensor], group=None) -> torch.Tensor:
@@ -120,8 +170,10 @@ def psum(values: Sequence[torch.Tensor], group=None) -> torch.Tensor:
         total = values[0]
         for v in values[1:]:
             total = total + v.to(device)
-        return total
-    return torch.stack([v.to(device, torch.int64) for v in values]).sum()
+    else:
+        total = torch.stack([v.to(device, torch.int64) for v in values]).sum()
+    record("psum", _nbytes(total))
+    return total
 
 
 def ppermute(tensors: Sequence[torch.Tensor], shift: int,
@@ -133,6 +185,7 @@ def ppermute(tensors: Sequence[torch.Tensor], shift: int,
     a tensor whose receiver lies in another process goes there point to
     point."""
     n_local = len(tensors)
+    record("ppermute", _nbytes(tensors[0]))
     if group is None:
         return [tensors[(i - shift) % n_local].to(devices[i], copy=True)
                 for i in range(n_local)]

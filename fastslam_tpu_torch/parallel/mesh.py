@@ -47,7 +47,7 @@ import torch.distributed as dist
 
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core.state import FilterState, PlanesState
-from fastslam_tpu_torch.parallel.collectives import all_gather
+from fastslam_tpu_torch.parallel.collectives import all_gather, record
 
 _PLANES = ("lm_mx", "lm_my", "lm_ca", "lm_cb", "lm_cc", "lm_cd")
 _SLOTS = ("lm_mean", "lm_cov")   # the blocks fields the map axis splits (dim 1)
@@ -230,6 +230,9 @@ def _split_state(state, placements: List[Placement], map_shards: int):
         out.append(type(state)(**row, **{
             k: _shard(getattr(state, k), 0, particles, device, slots)
             for k in _SLOTS if hasattr(state, k)}))
+    for v in out[0].__dict__.values():   # the re-split, in an open tally
+        if v is not None:
+            record("split", v.numel() * v.element_size())
     return out
 
 

@@ -35,7 +35,9 @@ import torch.distributed as dist
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import kernels
 from fastslam_tpu_torch.core.state import FilterState
-from fastslam_tpu_torch.parallel.collectives import all_gather, ppermute, psum, shard_range
+from fastslam_tpu_torch.parallel.collectives import (
+    all_gather, ppermute, psum, shard_range, site,
+)
 from fastslam_tpu_torch.parallel.mesh import ParticleMesh, columns, from_columns
 
 _FIELDS = ("poses", "log_weights", "lm_mean", "lm_cov", "lm_count")
@@ -111,7 +113,9 @@ def halo_systematic_resample(shards: Sequence[FilterState], u0: torch.Tensor,
     cols = columns(shards, mesh)
     devices = columns(mesh.devices, mesh)
     p = mesh.particle_shards * shards[0].num_particles
-    out = [_halo_ring(col, u0, devs, mesh.group, p, config) for col, devs in zip(cols, devices)]
+    with site("halo"):
+        out = [_halo_ring(col, u0, devs, mesh.group, p, config)
+               for col, devs in zip(cols, devices)]
     return from_columns(out, mesh)
 
 

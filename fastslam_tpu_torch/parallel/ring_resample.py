@@ -39,7 +39,7 @@ import torch
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import cuda_kernels
 from fastslam_tpu_torch.core.state import FilterState
-from fastslam_tpu_torch.parallel.collectives import all_gather
+from fastslam_tpu_torch.parallel.collectives import all_gather, site
 from fastslam_tpu_torch.parallel.mesh import ParticleMesh, columns, from_columns
 from fastslam_tpu_torch.parallel.resample import (
     pack_particle_block, shard_ancestor_window, uniform_log_weights,
@@ -101,6 +101,7 @@ def ring_halo_resample(shards: Sequence[FilterState], u0: torch.Tensor,
     devices, group) -> (lefts, rights)``."""
     group = mesh.group if mesh.num_processes > 1 else None
     p = mesh.particle_shards * shards[0].num_particles
-    out = [_ring_body(col, u0, devs, group, p, config.parity_mode, exchange=_exchange)
-           for col, devs in zip(columns(shards, mesh), columns(mesh.devices, mesh))]
+    with site("ring"):
+        out = [_ring_body(col, u0, devs, group, p, config.parity_mode, exchange=_exchange)
+               for col, devs in zip(columns(shards, mesh), columns(mesh.devices, mesh))]
     return from_columns(out, mesh)

@@ -36,7 +36,7 @@ import torch
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import cuda_kernels, kernels
 from fastslam_tpu_torch.core.state import Measurements
-from fastslam_tpu_torch.parallel.collectives import all_gather, shard_range
+from fastslam_tpu_torch.parallel.collectives import all_gather, shard_range, site
 from fastslam_tpu_torch.parallel.mesh import (
     ParticleMesh, require_1d, local_rows, rows, shard_planes_state, shard_state, unshard,
 )
@@ -132,9 +132,10 @@ def _normalize_and_resample(shards, u0: torch.Tensor, config: FastSLAMConfig,
     if bool(kernels.effective_particles(log_w, config) < config.resample_threshold_frac * p):
         if distributed:
             return halo_systematic_resample(shards, u0, mesh, config)
-        state = unshard(shards, mesh)
-        idx = kernels.systematic_resample_indices(torch.exp(state.log_weights), u0)
-        shards = shard_fn(resample_fn(state, idx, config), mesh, config)
+        with site("whole_state"):
+            state = unshard(shards, mesh)
+            idx = kernels.systematic_resample_indices(torch.exp(state.log_weights), u0)
+            shards = shard_fn(resample_fn(state, idx, config), mesh, config)
     return shards
 
 

@@ -9,7 +9,15 @@ line; on ``--device cpu`` it runs the kernels' plain versions and reports
 ``"device": "cpu"``.  Two more commands time checkouts of this repository
 in turns on the card: the backend's segment sums
 (:mod:`~fastslam_tpu_torch.probes.segment_sum_turns`) and the ring across
-processes (:mod:`~fastslam_tpu_torch.probes.ring_peers_turns`).
+processes (:mod:`~fastslam_tpu_torch.probes.ring_peers_turns`).  The
+measurement commands time the filter: K steps in one captured CUDA graph
+(:mod:`~fastslam_tpu_torch.probes.step`), the step with and without its
+kernels (:mod:`~fastslam_tpu_torch.probes.compare`), the online tick's
+parts (:mod:`~fastslam_tpu_torch.probes.e2e_attribution`), the sharded
+step's collectives (:mod:`~fastslam_tpu_torch.probes.collective_bytes`)
+and its weak scaling on shards of one card
+(:mod:`~fastslam_tpu_torch.probes.scaling`); ``probes.check_parity``
+holds the card's kernels to the CPU.
 """
 
 from __future__ import annotations

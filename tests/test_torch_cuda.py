@@ -1256,6 +1256,72 @@ def test_diagnose_slip_repeats_on_the_card(device):
     assert all(np.all(np.isfinite(np.asarray(v, float))) for v in a.values())
 
 
+
+@pytest.mark.parametrize("flags", [[], ["--planes"], ["--fused-only"], ["--chunk", "4"],
+                                   ["--chunk", "4", "--fs2"], ["--planes", "--fs2"],
+                                   ["--fs2"], ["--planes", "--with-frontend"]],
+                         ids=["scan", "planes", "fusedonly", "chunked", "chunked+fs2",
+                              "planes+fs2", "scan+fs2", "planes+frontend"])
+def test_step_probe_graph_equals_eager(device, flags):
+    """K steps in one captured graph (resample decided on the device) equal
+    K eager steps bit for bit; the probe raises otherwise."""
+    from fastslam_tpu_torch.probes import step
+
+    args = step.parse(["--particles", str(P), "--landmarks", str(L), "--measurements",
+                       str(M), "--k", "5"] + flags)
+    rec = step.run(args)
+    assert rec["graph"] and rec["draws"] == "eager_static"
+    assert sum(rec["launches_per_replay"].values()) == 5     # one kernel launch per step
+
+
+def test_on_device_steps_capture(device):
+    """``fastslam_step`` (fs2 with evidence weights: the EKF loop) and
+    ``fastslam_steps_planes_chunked`` under ``on_device=True`` capture into a
+    graph whose replay equals the host-deciding eager call bit for bit."""
+    from fastslam_tpu_torch.core.state import Measurements, init_state
+
+    cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, max_measurements=M,
+                         parity_mode=False, proposal_mode="fastslam2",
+                         fs2_evidence_weights=True)
+    ms = pad_measurements(cfg, [(1.5 + 0.4 * i, -2.0 + 0.6 * i) for i in range(6)], device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    rot, trans = torch.zeros((), device=device), torch.full((), 0.4, device=device)
+    state = init_state(cfg, device)
+    for _ in range(3):      # a map to associate with
+        state, _ = kernels.fastslam_step(state, rot, trans, ms, cfg,
+                                         kernels.draw(gen, P, fs2=True))
+    draws = kernels.draw(gen, P, fs2=True)
+    want, want_pose = kernels.fastslam_step(state.clone(), rot, trans, ms, cfg, draws)
+    static = state.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, pose = kernels.fastslam_step(static, rot, trans, ms, cfg, draws, on_device=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, v in vars(want).items():
+        assert torch.equal(getattr(got, name), v), name
+    assert torch.equal(pose, want_pose)
+
+    pcfg = cfg.replace(proposal_mode="motion")
+    pstate, _, _ = seeded(pcfg, device, 5)
+    c = 4
+    zc = Measurements(ms.range_bearing[None].repeat(c, 1, 1), ms.valid[None].repeat(c, 1))
+    rots, transs = torch.zeros(c, device=device), torch.full((c,), 0.4, device=device)
+    draws = kernels.draw(gen, P, c)
+    want, want_est = kernels.fastslam_steps_planes_chunked(pstate.clone(), rots, transs, zc,
+                                                           pcfg, draws)
+    static = pstate.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, est = kernels.fastslam_steps_planes_chunked(static, rots, transs, zc, pcfg, draws,
+                                                         on_device=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, v in vars(want).items():
+        assert (v is None and getattr(got, name) is None) or torch.equal(getattr(got, name), v)
+    assert torch.equal(est, want_est)
+
+
 if __name__ == "__main__":
     import os
     import sys
