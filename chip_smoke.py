@@ -252,9 +252,19 @@ Phases, one line each (or more):
 34. ``probes.scaling``: the blocks and the chunked sharded steps at 1, 2,
     4 and 8 shards of the card, 12,500 particles each, each S's first step
     equal to one shard's bit for bit; ms per tick and the efficiency
-    against S = 1.  Each of phases 30–34 runs with the launch counters set
-    to 0 just before (the ``step``, ``compare``, ``e2e_attribution``,
-    ``collective_bytes`` and ``scaling`` paths of the kernels line).
+    against S = 1;
+35. the benchmark command, ``fastslam_tpu_torch.bench.main`` at
+    ``bench.py``'s geometry (P=100,000, L=64, M=16, C=16, 768 ticks per
+    chunked window, 192 scans end to end) with its windows, reps and
+    budgets: its one JSON line printed, every key of ``bench.py``'s line
+    there with ``device``, ``power_limit_w`` and ``launches``, every number
+    finite and positive, every window's graph held to its eager run bit
+    for bit (the command raises otherwise), and launches of rows 1, 2 and 4
+    (the e2e loop's per-tick motion kernel, the chunked motion and fs2
+    kernels).  Each of phases 30–35 runs with the launch counters set to 0
+    just before (the ``step``, ``compare``, ``e2e_attribution``,
+    ``collective_bytes``, ``scaling`` and ``bench`` paths of the kernels
+    line).
 
 Any failure raises.  The card's name and power limit come on the line
 before the kernels' JSON summary (launches of each main path's first run
@@ -3129,6 +3139,55 @@ def phase34():
     return launches
 
 
+# bench.py's keys (bench.py:352-371) and the port's
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "step_seconds", "windows",
+              "fs2_step_seconds", "fs2_updates_per_s", "fs2_windows", "e2e_frames_per_s",
+              "baseline_updates_per_s", "baseline_updates_per_s_measured",
+              "baseline_pin_stale", "device", "power_limit_w", "launches")
+BENCH_ROWS = ("fused_update_planes", "fused_update_planes_multi", "fused_fs2_planes_multi")
+
+
+def phase35():
+    """``python -m fastslam_tpu_torch.bench``'s main at full geometry."""
+    import contextlib
+    import io
+    import math
+
+    from fastslam_tpu_torch import bench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, launches, wall = zeroed_run(lambda: bench.main([]))
+    lines = out.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines: {lines}")
+    print(lines[0], flush=True)
+    rec = json.loads(lines[0])
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    if missing:
+        raise AssertionError(f"bench: keys missing {missing}")
+    numbers = [v for k, v in rec.items() if k != "launches"
+               and isinstance(v, (int, float)) and not isinstance(v, bool)]
+    numbers += rec["windows"] + rec["fs2_windows"] + list(rec["launches"].values())
+    if not all(math.isfinite(x) and x > 0 for x in numbers):
+        raise AssertionError(f"bench: a number is not finite and positive ({rec})")
+    if not isinstance(rec["baseline_pin_stale"], bool) or len(rec["windows"]) != 3 \
+            or len(rec["fs2_windows"]) != 2:
+        raise AssertionError(f"bench: malformed record ({rec})")
+    if not all(launches.get(k) for k in BENCH_ROWS) or rec["launches"] != {
+            k: n for k, n in launches.items() if n}:
+        raise AssertionError(f"bench: launches {rec['launches']}, counters {launches}")
+    phase(35, f"bench: {rec['value']:,} updates/s ({rec['step_seconds'] * 1e3:.4f} ms per "
+              f"tick; windows {rec['windows']}), fs2 {rec['fs2_updates_per_s']:,} "
+              f"({rec['fs2_step_seconds'] * 1e3:.4f} ms; {rec['fs2_windows']}), e2e "
+              f"{rec['e2e_frames_per_s']} frames/s, vs_baseline {rec['vs_baseline']} "
+              f"(oracle pinned {rec['baseline_updates_per_s']}, measured "
+              f"{rec['baseline_updates_per_s_measured']}, stale {rec['baseline_pin_stale']}); "
+              f"every window's graph equal to its eager run bit for bit; {wall:.1f} s; "
+              f"launches {rec['launches']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3226,6 +3285,7 @@ def main() -> int:
     paths["e2e_attribution"] = phase32()
     paths["collective_bytes"] = phase33()
     paths["scaling"] = phase34()
+    paths["bench"] = phase35()
     # the cross-process exchange: phase 23's times (2 x 2, process 0, the
     # mean of the two turns), no library call (NCCL takes no two ranks on one
     # card); the bound is the whole ring's bytes on the one card

@@ -292,6 +292,38 @@ def events():
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
 
+def reference_run(loop: Loop, gen: torch.Generator):
+    """The loop's K steps eagerly from its state (never changed) with new
+    draws from ``gen``, the host deciding each resample: the reference a
+    graph is held to, which on the card also builds the kernels.  Returns
+    ``(state, out)``."""
+    fill_draws(loop, gen)
+    state, out = run_steps(loop, loop.state.clone())
+    return state, out.clone()
+
+
+def checked_capture(loop: Loop, ref_state, ref_out):
+    """The K steps captured into one graph (:func:`capture`) and replayed
+    once from the loop's state with the draws :func:`reference_run` left;
+    raises unless the replay ends in ``ref_state`` and ``ref_out`` bit for
+    bit.  Returns ``(graph, static, out, tally)``; the replay's launches are
+    counted."""
+    static = loop.state.clone()
+    graph, out, tally = capture(loop, static)
+    replay(graph, tally)
+    torch.cuda.synchronize(out.device)
+    if not (same_state(static, ref_state) and torch.equal(out, ref_out)):
+        raise AssertionError("the graph's K steps differ from the eager K steps")
+    return graph, static, out, tally
+
+
+def replay(graph, tally: dict) -> None:
+    """One replay of a captured graph, its kernel launches counted."""
+    graph.replay()
+    for name, count in tally.items():
+        cuda_kernels.LAUNCHES[name] += count
+
+
 def time_loop(loop: Loop, device, reps: int = REPS, eager: bool = True) -> dict:
     """Run the loop's K steps eagerly from its state (the reference, which
     also builds the kernels), then on the card capture them into one graph,
@@ -309,9 +341,7 @@ def time_loop(loop: Loop, device, reps: int = REPS, eager: bool = True) -> dict:
     cuda = device.type == "cuda"
     gen = torch.Generator(device=device).manual_seed(SEED)
     t0 = time.perf_counter()
-    fill_draws(loop, gen)
-    ref_state, ref_out = run_steps(loop, loop.state.clone())
-    ref_out = ref_out.clone()
+    ref_state, ref_out = reference_run(loop, gen)
     if not cuda:
         build_s = time.perf_counter() - t0
         gen.manual_seed(SEED + 1)
@@ -326,15 +356,8 @@ def time_loop(loop: Loop, device, reps: int = REPS, eager: bool = True) -> dict:
                 "state": ref_state, "out": ref_out, "out_last": last, "draws": "eager",
                 "tally": {}}
 
-    static = loop.state.clone()
-    graph, g_out, tally = capture(loop, static)
-    graph.replay()
-    torch.cuda.synchronize(device)
+    graph, static, g_out, tally = checked_capture(loop, ref_state, ref_out)
     build_s = time.perf_counter() - t0
-    for name, count in tally.items():
-        cuda_kernels.LAUNCHES[name] += count
-    if not (same_state(static, ref_state) and torch.equal(g_out, ref_out)):
-        raise AssertionError("the graph's K steps differ from the eager K steps")
 
     def timed(run):
         gen.manual_seed(SEED + 1)
@@ -349,13 +372,11 @@ def time_loop(loop: Loop, device, reps: int = REPS, eager: bool = True) -> dict:
             best = min(best, start.elapsed_time(stop))
         return best, last
 
-    def replay():
-        graph.replay()
-        for name, count in tally.items():
-            cuda_kernels.LAUNCHES[name] += count
+    def replayed():
+        replay(graph, tally)
         return g_out
 
-    graph_ms, g_last = timed(replay)
+    graph_ms, g_last = timed(replayed)
     eager_ms, state = None, ref_state.clone()
     if eager:
         def eager_run():

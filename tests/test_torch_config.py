@@ -43,6 +43,7 @@ SLICE_MODULES = [
     "fastslam_tpu_torch.eval.metrics",
     "fastslam_tpu_torch.app.runner",
     "fastslam_tpu_torch.app.cli",
+    "fastslam_tpu_torch.bench",
 ]
 
 

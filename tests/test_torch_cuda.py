@@ -1333,3 +1333,21 @@ if __name__ == "__main__":
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(0)
+
+
+@pytest.mark.parametrize("proposal,row", [("motion", "fused_update_planes_multi"),
+                                          ("fastslam2", "fused_fs2_planes_multi")])
+def test_bench_chunked_graph(device, proposal, row):
+    """The benchmark's chunked window at reduced reps: its graph held to the
+    eager chunks bit for bit (``time_window`` raises otherwise), a finite
+    rate, one launch per chunk in the reference, the check's replay and
+    each timed replay."""
+    from fastslam_tpu_torch import bench
+
+    before = cuda_kernels.LAUNCHES[row]
+    ups, step_s = bench.bench_chunked(5 * C + 1, C, proposal, reps=3, budget_s=10.0,
+                                      num_particles=P, num_landmarks=L,
+                                      num_measurements=M, device=device)
+    assert np.isfinite(ups) and ups > 0
+    assert ups == pytest.approx(P * M / step_s)
+    assert cuda_kernels.LAUNCHES[row] - before == 5 * (2 + 3)
