@@ -1,0 +1,1 @@
+"""Plain references that decide ``correct``; they import nothing of the program."""
