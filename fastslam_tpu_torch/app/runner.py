@@ -52,7 +52,7 @@ from fastslam_tpu_torch.proposal import adaptive
 from fastslam_tpu_torch.proposal.icp import icp_point_to_line, rotate_points
 from fastslam_tpu_torch.utils.health import HealthMonitor
 from fastslam_tpu_torch.utils.logging_utils import MetricsLog
-from fastslam_tpu_torch.utils.profiling import PhaseTimer
+from fastslam_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -349,56 +349,66 @@ class SLAMRunner:
         The host's floor estimator reads this tick type's floors, blends,
         bias and gate before the tick and takes the tick's residuals after
         it.  The warmup dead-reckons with the refined odometry ``out[3:5]``.
-        """
-        k = int(v != 0)
-        if self._adaptive_floors:
-            # residuals through tick t-1, read at this tick's own type
-            fxy, fth, a_xy, a_th, dial, diag = self._floor_est.read(k)
-            self._floor_xy, self._floor_th = fxy, fth
-            self._blend_xy = a_xy
-            self._blend_th = a_th
-            self._bias_th = diag["b_th"]
-            self._lat_gate = diag["lat_gate"]
-            self._dial = dial
-        rot_prev, trans_prev = self._prev_cmd
-        self._prev_cmd = (float(rotation), float(translation))
-        has_prev, has_prev2 = self._fused.has_prev()
-        out = self._fused(points, valid, (
-            rotation, translation, rot_prev, trans_prev, float(v != 0),
-            float(has_prev), float(has_prev2), self._floor_xy, self._floor_th,
-            self._blend_xy, self._blend_th, self._bias_th, self._lat_gate, self._dial))
-        self._last_num_measurements = int(out[5])
-        self._last_out = out
-        if self._adaptive_floors:
-            # this tick's residuals; the next tick reads at its own type
-            ang, tx, ty = float(out[8]), float(out[9]), float(out[10])
-            kw = {}
-            if has_prev:
-                sr, al, la = adaptive.se2_residuals(
-                    np.array([ang], np.float32), np.array([[tx, ty]], np.float32),
-                    np.array([0.0, rotation], np.float32),
-                    np.array([0.0, translation], np.float32))
-                kw.update(sr_th=float(sr[1]), sr_al=float(al[1]), lat=float(la[1]))
-            if has_prev2:
-                pa, ptx, pty = self._prev_se2
-                d_ang, d_t2 = adaptive.consistency_discrepancy(
-                    np.array([pa, ang], np.float32),
-                    np.array([[ptx, pty], [tx, ty]], np.float32),
-                    np.array([out[11]], np.float32),
-                    np.array([[out[12], out[13]]], np.float32))
-                kw.update(d_ang=float(d_ang[0]), d_t2=float(d_t2[0]))
-            self._prev_se2 = (ang, tx, ty)
-            self._floor_est.push(k, **kw)
 
-        if self.iteration < self.config.warmup_iterations:
-            rot_u, trans_u = float(out[3]), float(out[4])
-            self.robot[2] = (self.robot[2] + rot_u + np.pi) % (2 * np.pi) - np.pi
-            self.robot[0] += trans_u * np.cos(self.robot[2])
-            self.robot[1] += trans_u * np.sin(self.robot[2])
-            self.iteration += 1
-        else:
-            self.robot = out[:3].astype(float).copy()
-        return self.robot.copy()
+        While a ``torch.profiler`` session is active the tick is a row of
+        :data:`~fastslam_tpu_torch.utils.profiling.TICK_TRACE`: the span
+        ``tick`` over the call, its children ``estimator`` (the floor
+        estimator's read and push, summed), ``submit`` and ``wait``
+        (:class:`_FusedTick`), the device stages and the counters.
+        """
+        trace = profiling.TICK_TRACE
+        with trace.row(self._fused._ticks):
+            k = int(v != 0)
+            if self._adaptive_floors:
+                with trace.span("estimator"):
+                    # residuals through tick t-1, read at this tick's own type
+                    fxy, fth, a_xy, a_th, dial, diag = self._floor_est.read(k)
+                    self._floor_xy, self._floor_th = fxy, fth
+                    self._blend_xy = a_xy
+                    self._blend_th = a_th
+                    self._bias_th = diag["b_th"]
+                    self._lat_gate = diag["lat_gate"]
+                    self._dial = dial
+            rot_prev, trans_prev = self._prev_cmd
+            self._prev_cmd = (float(rotation), float(translation))
+            has_prev, has_prev2 = self._fused.has_prev()
+            out = self._fused(points, valid, (
+                rotation, translation, rot_prev, trans_prev, float(v != 0),
+                float(has_prev), float(has_prev2), self._floor_xy, self._floor_th,
+                self._blend_xy, self._blend_th, self._bias_th, self._lat_gate, self._dial))
+            self._last_num_measurements = int(out[5])
+            self._last_out = out
+            if self._adaptive_floors:
+                with trace.span("estimator"):
+                    # this tick's residuals; the next tick reads at its own type
+                    ang, tx, ty = float(out[8]), float(out[9]), float(out[10])
+                    kw = {}
+                    if has_prev:
+                        sr, al, la = adaptive.se2_residuals(
+                            np.array([ang], np.float32), np.array([[tx, ty]], np.float32),
+                            np.array([0.0, rotation], np.float32),
+                            np.array([0.0, translation], np.float32))
+                        kw.update(sr_th=float(sr[1]), sr_al=float(al[1]), lat=float(la[1]))
+                    if has_prev2:
+                        pa, ptx, pty = self._prev_se2
+                        d_ang, d_t2 = adaptive.consistency_discrepancy(
+                            np.array([pa, ang], np.float32),
+                            np.array([[ptx, pty], [tx, ty]], np.float32),
+                            np.array([out[11]], np.float32),
+                            np.array([[out[12], out[13]]], np.float32))
+                        kw.update(d_ang=float(d_ang[0]), d_t2=float(d_t2[0]))
+                    self._prev_se2 = (ang, tx, ty)
+                    self._floor_est.push(k, **kw)
+
+            if self.iteration < self.config.warmup_iterations:
+                rot_u, trans_u = float(out[3]), float(out[4])
+                self.robot[2] = (self.robot[2] + rot_u + np.pi) % (2 * np.pi) - np.pi
+                self.robot[0] += trans_u * np.cos(self.robot[2])
+                self.robot[1] += trans_u * np.sin(self.robot[2])
+                self.iteration += 1
+            else:
+                self.robot = out[:3].astype(float).copy()
+            return self.robot.copy()
 
     def state_blocks(self) -> FilterState:
         """The filter state in the ``[P, L, k]`` blocks layout, for the health
@@ -438,7 +448,7 @@ class _FusedTick:
     floor_xy, floor_th, ang, t_x, t_y, dir_ang, dir_tx, dir_ty]``.
 
     On CUDA the first tick runs the body eagerly (it builds the kernels and
-    initializes every lazy resource), then the body is captured once into a
+    initializes every lazy resource), then the body is captured into a
     :class:`torch.cuda.CUDAGraph`; every later tick is one replay.  The draws
     are taken eagerly from the runner's generator before each tick and
     copied into the static draw tensors, so a replay takes exactly the draws
@@ -447,21 +457,41 @@ class _FusedTick:
     and each replay adds them.  On the CPU, or with ``graph=False``, the
     body runs eagerly every tick.  A capture that fails raises; nothing
     falls back to the eager or the split path.
+
+    While a profiler session is active (the tick's trace row is open) the
+    body also marks the ends of its stages ``icp`` (with the ICP proposal),
+    ``frontend``, ``update`` and ``resample`` with capture-safe
+    :class:`~fastslam_tpu_torch.utils.profiling.EventMarks`, and appends to
+    ``out`` what its counters are read from: the tick's Neff and, with the
+    ICP proposal, the iterations of its match pairs (int32, carried as their
+    bits), in the one concatenation that builds ``out``.  On CUDA that is a
+    second captured graph, replayed only then, so an untraced replay runs
+    no mark.  The tick returns ``out[14]`` and notes in the row the stage
+    milliseconds and the counters ``resample_due`` (Neff under the resample
+    threshold, the rule of ``kernels._normalize_and_resample`` in float32)
+    and ``icp_iters`` (the mean over the match pairs).
     """
 
     N_SCALARS = 14
+    N_OUT = 14
 
     def __init__(self, runner: SLAMRunner, *, graph: bool):
         self.runner = runner
         self.config = runner.config
         self.graph_enabled = graph
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graphs: dict = {}
         self.replays = 0
         self._tally: dict = {}
         self._inp = None
         self._ticks = 0
         self._icp = self.config.use_icp_proposal
         self._floors_on = runner._adaptive_floors
+        stages = ("icp",) if self._icp else ()
+        self._marks = profiling.EventMarks(
+            runner.device, stages=stages + ("frontend", "update", "resample"))
+        self._neff_due = np.float32(self.config.resample_threshold_frac
+                                    * self.config.num_particles)
 
     def has_prev(self):
         """Whether the scans t-1 and t-2 exist at the coming tick."""
@@ -502,10 +532,14 @@ class _FusedTick:
                 dst.copy_(src)
 
     # --------------------------------------------------------------- body
-    def _body(self) -> torch.Tensor:
-        """One fused tick on the static tensors; returns ``out[14]``."""
+    def _body(self, marks: Optional[profiling.EventMarks] = None) -> torch.Tensor:
+        """One fused tick on the static tensors; returns ``out[14]``, and
+        with ``marks`` marks the stages and appends Neff and the ICP
+        iterations' bits."""
         cfg, runner, n = self.config, self.runner, self._n
         dev = runner.device
+        if marks is not None:
+            marks.start()
         pts = self._inp[:2 * n].view(n, 2)
         vld = self._inp[2 * n:3 * n] > 0.5
         (rotation, translation, rot_prev, trans_prev, v_active, has_prev, has_prev2,
@@ -559,25 +593,36 @@ class _FusedTick:
             self._prev2[1].copy_(self._prev[1])
             self._prev[0].copy_(pts)
             self._prev[1].copy_(vld)
+            if marks is not None:
+                marks("icp")
         if runner._tracks is not None:
             tracks, ms = runner._tracked_measurements(pts, vld, rotation, translation)
             for dst, src in zip(runner._tracks, tracks):
                 dst.copy_(src)
         else:
             ms = scan_to_measurements(pts, vld, cfg)
+        if marks is not None:
+            marks("frontend")
         extra = {}
         if self._floors_on:
             extra = dict(proposal_floors=(fxy, fth), evidence_scale=dial)
         state, est = kernels.fastslam_step_planes(
             runner.state, rotation, translation, ms, cfg, self._draws, on_device=True,
-            **extra)
+            marks=marks, **extra)
         for name, dst in runner.state.__dict__.items():
             if dst is not None:
                 dst.copy_(getattr(state, name))
+        if marks is not None:
+            marks("resample")
         n_meas = ms.valid.sum().to(torch.float32)
-        return torch.cat([est, torch.stack([rotation, translation, n_meas, fxy, fth, ang,
-                                            t_comp[0], t_comp[1], dir_ang, dir_t[0],
-                                            dir_t[1]])])
+        scalars = [rotation, translation, n_meas, fxy, fth, ang, t_comp[0], t_comp[1],
+                   dir_ang, dir_t[0], dir_t[1]]
+        if marks is None:
+            return torch.cat([est, torch.stack(scalars)])
+        # Neff, unless the step kept none (0-d float32), then the iterations
+        kept = list(marks.counters.values())
+        iters = [res.num_iters.view(torch.float32)] if self._icp else []
+        return torch.cat([est, torch.stack(scalars + kept), *iters])
 
     # --------------------------------------------------------------- tick
     def __call__(self, points, valid, scalars) -> np.ndarray:
@@ -587,32 +632,55 @@ class _FusedTick:
         elif n != self._n:
             raise ValueError(f"the fused tick's buffers hold scans of {self._n} beams, "
                              f"got {n}")
-        self._fill(points, valid, scalars)
-        if self.graph is not None:
-            self.graph.replay()
-            self.replays += 1
-            for name, count in self._tally.items():
-                cuda_kernels.LAUNCHES[name] += count
-            out = self._out
-        else:
-            out = self._body()
-            if self.graph_enabled:
-                self._capture()
+        trace = profiling.TICK_TRACE
+        traced = trace.recording
+        with trace.span("submit"):
+            self._fill(points, valid, scalars)
+            if self.graph is not None:
+                graph, out = self._graphs[traced]
+                graph.replay()
+                self.replays += 1
+                for name, count in self._tally.items():
+                    cuda_kernels.LAUNCHES[name] += count
+            else:
+                out = self._body(self._marks if traced else None)
+                if self.graph_enabled:
+                    self._capture()
+        with trace.span("wait"):
+            out = out.cpu().numpy()
         self._ticks += 1
-        return out.cpu().numpy()
+        if traced:
+            k = self.N_OUT + len(self._marks.counters)
+            kept = dict(zip(self._marks.counters, out[self.N_OUT:k]))
+            counters = {}
+            if "neff" in kept:
+                counters["resample_due"] = float(kept["neff"] < self._neff_due)
+            if self._icp:
+                counters["icp_iters"] = float(out[k:].view(np.int32).mean())
+            trace.note(self._marks.stage_ms(), counters)
+        return out[:self.N_OUT]
 
     def _capture(self) -> None:
-        """Capture the body into a CUDA graph (after the eager first tick)."""
+        """Capture the body into a CUDA graph (after the eager first tick),
+        and again with the stage marks for the traced ticks.  The second
+        shares the first's memory pool: its temporaries may lie where the
+        first's do, which is safe because each tick reads its output before
+        the next replay."""
         before = dict(cuda_kernels.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.runner.device), torch.cuda.graph(graph):
-            self._out = self._body()
-        # the capture launched nothing: take its counts back for the replays
-        self._tally = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before
-                       if cuda_kernels.LAUNCHES[k] != before[k]}
-        for name, count in self._tally.items():
+        for traced in (False, True):
+            graph = torch.cuda.CUDAGraph()
+            pool = self.graph.pool() if traced else None
+            with torch.cuda.device(self.runner.device), torch.cuda.graph(graph, pool=pool):
+                self._graphs[traced] = (graph, self._body(self._marks if traced else None))
+            if not traced:
+                self.graph = graph
+        # the captures launched nothing: take their counts back; a replay
+        # adds one capture's
+        spent = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before
+                 if cuda_kernels.LAUNCHES[k] != before[k]}
+        for name, count in spent.items():
             cuda_kernels.LAUNCHES[name] -= count
-        self.graph = graph
+        self._tally = {k: count // 2 for k, count in spent.items()}
 
 
 def run_driver(
@@ -674,7 +742,8 @@ def run_driver(
     spent = history.stage_seconds
     fused = runner._fused is not None
     spent.update({"tick": 0.0} if fused else {"icp_refine": 0.0, "tick": 0.0})
-    hook_time = PhaseTimer()   # each hook ends in a host copy or a file write
+    # each hook ends in a host copy or a file write
+    hook_time = profiling.PhaseTimer("fastslam.hook")
     while running and ticks < max_ticks:
         scan = driver.get_laser()
         points, valid = scan.to_points()

@@ -251,7 +251,8 @@ def estimate_pose(state) -> torch.Tensor:
 
 
 def _normalize_and_resample(state, u0: torch.Tensor, config: FastSLAMConfig,
-                            resample=resample_planes_state, *, on_device: bool = False):
+                            resample=resample_planes_state, *, on_device: bool = False,
+                            marks=None):
     """Normalize, Neff, and the conditional systematic resample of either
     layout (``resample`` gathers the state by ancestor index).
 
@@ -263,12 +264,16 @@ def _normalize_and_resample(state, u0: torch.Tensor, config: FastSLAMConfig,
     the weights are the resampled ones or the normalized ones by the same
     decision.  An identity gather copies every value, so both forms leave
     the same state bit for bit; the device form costs one read and one write
-    of the state per tick."""
+    of the state per tick.  ``marks`` (``utils/profiling.py:EventMarks``),
+    when given, keeps ``neff``, from which a reader decides, as here,
+    whether the resample was due."""
     log_w = normalize_log_weights(state.log_weights, config)
     state = state.replace(log_weights=log_w)
     p = state.num_particles
     neff = effective_particles(log_w, config)
     do_resample = neff < config.resample_threshold_frac * p
+    if marks is not None:
+        marks.count("neff", neff)
     if not on_device:
         if bool(do_resample):
             idx = systematic_resample_indices(torch.exp(log_w), u0)
@@ -344,7 +349,7 @@ def planes_update(state: PlanesState, rotation, translation,
 def fastslam_step_planes(state: PlanesState, rotation, translation,
                          measurements: Measurements, config: FastSLAMConfig,
                          draws: Draws, *, proposal_floors=None,
-                         evidence_scale=None, on_device: bool = False
+                         evidence_scale=None, on_device: bool = False, marks=None
                          ) -> Tuple[PlanesState, torch.Tensor]:
     """One filter tick: :func:`planes_update` (the kernels run on CUDA,
     their plain versions on the CPU), then normalize, Neff, conditional
@@ -352,14 +357,19 @@ def fastslam_step_planes(state: PlanesState, rotation, translation,
     ``evidence_scale`` (the mode dial) feed the fs2 proposal only.
     ``on_device=True`` decides the resample on the device
     (:func:`_normalize_and_resample`): the step then reads nothing on the
-    host, and leaves the same state bit for bit.
+    host, and leaves the same state bit for bit.  ``marks``
+    (``utils/profiling.py:EventMarks``), when given, ends the stage
+    ``update`` after :func:`planes_update` and keeps ``neff``.
 
     The planes, weights and counts of ``state`` are updated in place; the
     returned state is the one to keep.  Returns ``(new_state, pose [3])``.
     """
     state = planes_update(state, rotation, translation, measurements, config, draws,
                           proposal_floors=proposal_floors, evidence_scale=evidence_scale)
-    state = _normalize_and_resample(state, draws.u0, config, on_device=on_device)
+    if marks is not None:
+        marks("update")
+    state = _normalize_and_resample(state, draws.u0, config, on_device=on_device,
+                                    marks=marks)
     # argmax returns the first of equal maxima, as jnp.argmax does
     return state, estimate_pose(state)
 

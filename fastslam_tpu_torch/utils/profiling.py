@@ -2,17 +2,19 @@
 
 Counterpart of ``fastslam_tpu/utils/profiling.py``:
 
-* :class:`PhaseTimer`: wall-clock phase accounting for the host loop, with
-  a device synchronization before the end stamp when a phase hands it CUDA
-  tensors (PyTorch returns before the card finishes, so without it every
-  phase looks free and the next one pays);
+* :class:`PhaseTimer`: the host loop's phase totals and, while a
+  ``torch.profiler`` session is active, rows of nested host spans, one row
+  per tick, each span also a named region of the trace;
+  :data:`TICK_TRACE` is the fused online tick's;
 * :func:`device_trace`: ``torch.profiler`` over the CPU and, where there is
   a card, CUDA activities, exported as a Chrome trace;
 * :func:`annotate`: a named region (``torch.profiler.record_function``)
   that shows in those traces.
 
 * :class:`EventMarks`: stage ends marked inside a device computation, to
-  split its time by stage (CUDA events on a card).
+  split its time by stage (CUDA events on a card), with a form that a CUDA
+  graph can capture, and device counters read back with the computation's
+  result.
 
 Also :func:`elapsed_ms`, the time of a function with CUDA events on a card
 (host clock on the CPU), and :func:`card`, the card's name and power limit
@@ -25,61 +27,126 @@ import contextlib
 import os
 import subprocess
 import time
-from collections import defaultdict
-from typing import Dict, Optional, Tuple
+from collections import defaultdict, deque
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+# rows kept by a PhaseTimer: the newest ticks, ~30 s of the online loop
+ROW_CAPACITY = 16_384
+_NOTHING = contextlib.nullcontext()
 
-def _has_cuda_tensor(args) -> bool:
-    for a in args:
-        if isinstance(a, torch.Tensor) and a.is_cuda:
-            return True
-        if isinstance(a, (list, tuple)) and _has_cuda_tensor(a):
-            return True
-    return False
+
+def profiling_active() -> bool:
+    """Whether a ``torch.profiler`` session is active (the flag the autograd
+    profiler sets while one is)."""
+    return torch.autograd.profiler._is_profiler_enabled
 
 
 class PhaseTimer:
-    """Accumulates per-phase wall time across loop iterations."""
+    """Host-clock phases of a loop.
 
-    def __init__(self, sync: bool = True):
+    :meth:`phase` adds a phase's seconds to ``totals`` on every call, and
+    while a profiler session is active it is also the trace region
+    ``<prefix>.<name>``.
+
+    :meth:`row` opens the row of one tick, where a profiler session is
+    active (read once, there), as the span ``tick``.  Each :meth:`span`
+    inside it is a child of the innermost open span: the row keeps it as ``(name,
+    parent, start_ns, end_ns)`` on ``time.perf_counter_ns``, and the trace
+    shows it as the region ``<prefix>.<path>`` (``fastslam.tick.submit``).
+    A span's self time is its duration less its children's.  :meth:`note`
+    adds the tick's device stage milliseconds and counters to the open row.
+    Outside an open row :meth:`span` and :meth:`note` do nothing, so with
+    no profiler session a span site costs one attribute read.
+
+    Closed rows go into a buffer of the newest :data:`ROW_CAPACITY`;
+    ``dropped`` counts the rows pushed out of it.
+    """
+
+    def __init__(self, prefix: str = "fastslam"):
+        self.prefix = prefix
         self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-        self.sync = sync
+        self.dropped = 0
+        self._rows: deque = deque(maxlen=ROW_CAPACITY)
+        self._row: Optional[dict] = None
+        self._open: List[str] = []
 
     @contextlib.contextmanager
-    def phase(self, name: str, *sync_args):
-        """Time a phase; when ``sync_args`` hold a CUDA tensor (or lists or
-        tuples of them), synchronize the card before stamping the end."""
+    def phase(self, name: str):
+        """Time a phase into ``totals`` (a trace region while profiling)."""
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(f"{self.prefix}.{name}") if profiling_active() else _NOTHING:
+                yield
         finally:
-            if self.sync and _has_cuda_tensor(sync_args):
-                torch.cuda.synchronize()
             self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
 
-    def summary(self) -> Dict[str, dict]:
-        out = {}
-        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            out[name] = {
-                "total_s": round(total, 4),
-                "count": n,
-                "mean_ms": round(total / max(n, 1) * 1e3, 3),
-            }
-        return out
+    def row(self, key):
+        """The row of one tick, keyed ``key`` and spanned as ``tick``, where a
+        profiler session is active; else nothing."""
+        if not profiling_active():
+            return _NOTHING
+        return self._row_span(key)
 
-    def report(self) -> str:
-        lines = [f"{'phase':<20} {'total s':>10} {'count':>8} {'mean ms':>10}"]
-        for name, row in self.summary().items():
-            lines.append(
-                f"{name:<20} {row['total_s']:>10.3f} {row['count']:>8d} "
-                f"{row['mean_ms']:>10.3f}"
-            )
-        return "\n".join(lines)
+    @contextlib.contextmanager
+    def _row_span(self, key):
+        row = self._row = {"key": key, "spans": [], "stages": {}, "counters": {}}
+        try:
+            with self._span("tick"):
+                yield
+        finally:
+            self._row = None
+        # a tick that raised keeps no row
+        if len(self._rows) == self._rows.maxlen:
+            self.dropped += 1
+        self._rows.append(row)
+
+    @property
+    def recording(self) -> bool:
+        """Whether a row is open."""
+        return self._row is not None
+
+    def span(self, name: str):
+        """A child span of the innermost open one; nothing outside a row."""
+        if self._row is None:
+            return _NOTHING
+        return self._span(name)
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        parent = self._open[-1] if self._open else None
+        self._open.append(name)
+        label = f"{self.prefix}.{'.'.join(self._open)}"
+        t0 = time.perf_counter_ns()
+        try:
+            with annotate(label):
+                yield
+        finally:
+            self._row["spans"].append((name, parent, t0, time.perf_counter_ns()))
+            self._open.pop()
+
+    def note(self, stages: Dict[str, float], counters: Dict[str, float]) -> None:
+        """The open row's device stage milliseconds and counters."""
+        if self._row is not None:
+            self._row["stages"].update(stages)
+            self._row["counters"].update(counters)
+
+    def rows(self) -> List[dict]:
+        """The kept rows, oldest first: ``{"key", "spans", "stages",
+        "counters"}`` each."""
+        return list(self._rows)
+
+    def clear(self) -> None:
+        """Forget the kept rows and the drop count."""
+        self._rows.clear()
+        self.dropped = 0
+
+
+# the fused online tick's spans, stage marks and counters
+# (``app/runner.py:SLAMRunner.tick_fused``); one per process, so the rows of
+# a profiled window can be read after the loop and its runner are gone
+TICK_TRACE = PhaseTimer("fastslam")
 
 
 class EventMarks:
@@ -87,11 +154,27 @@ class EventMarks:
     ends stage ``name``, which began at the previous mark (or at
     :meth:`start`).  CUDA events on a card (the device's time, and nothing
     waits for them), the host clock on the CPU.  :meth:`stage_ms` sums each
-    stage's milliseconds over its occurrences."""
+    stage's milliseconds over its occurrences.
 
-    def __init__(self, device: torch.device | str):
+    With ``stages`` named in advance, in order, the marks are capture-safe:
+    one event per stage end and one for the start, made once and
+    ``external``, so a CUDA graph that captures the marks records them again
+    at every replay.  :meth:`stage_ms` then gives the last recording of each
+    stage and synchronizes nothing: read it once the computation is known
+    to be done (after the read-back of its result).
+
+    :meth:`count` keeps a device value of the computation (a tensor), for
+    the caller to read back with its result."""
+
+    def __init__(self, device: torch.device | str, stages: Optional[Sequence[str]] = None):
         self.device = torch.device(device)
+        self.stages = None if stages is None else tuple(stages)
+        self.counters: Dict[str, torch.Tensor] = {}
         self._marks: list = []
+        self._ends: dict = {}
+        if self.stages is not None and self.device.type == "cuda":
+            self._ends = {name: torch.cuda.Event(enable_timing=True, external=True)
+                          for name in (None, *self.stages)}
 
     def _stamp(self):
         if self.device.type == "cuda":
@@ -100,16 +183,33 @@ class EventMarks:
             return event
         return time.perf_counter()
 
+    def _mark(self, name: Optional[str]) -> None:
+        if self.stages is None:
+            self._marks.append((name, self._stamp()))
+        elif self.device.type == "cuda":
+            self._ends[name].record()
+        else:
+            self._ends[name] = time.perf_counter()
+
     def start(self) -> None:
         """Begin a stage without ending one."""
-        self._marks.append((None, self._stamp()))
+        self._mark(None)
 
     def __call__(self, name: str) -> None:
-        self._marks.append((name, self._stamp()))
+        self._mark(name)
+
+    def count(self, name: str, value: torch.Tensor) -> None:
+        """Keep the device value ``name`` of this computation."""
+        self.counters[name] = value
 
     def stage_ms(self) -> Dict[str, float]:
-        """Milliseconds per stage name, summed (synchronizes the card)."""
+        """Milliseconds per stage name, summed (synchronizes the card,
+        except in the capture-safe form)."""
         cuda = self.device.type == "cuda"
+        if self.stages is not None:
+            e, ends = self._ends, (None, *self.stages)
+            return {name: e[prev].elapsed_time(e[name]) if cuda else (e[name] - e[prev]) * 1e3
+                    for prev, name in zip(ends, ends[1:])}
         if cuda:
             torch.cuda.synchronize(self.device)
         out: Dict[str, float] = defaultdict(float)

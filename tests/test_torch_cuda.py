@@ -1034,6 +1034,125 @@ def test_fused_graph_equals_eager_in_every_mode(device, kw):
     assert np.isfinite(got).all() and max(captured.num_measurements) > 0
 
 
+def test_captured_timing_events_time_a_kernel_as_eager_events_do(device):
+    """The capture-safe stage marks: external timing events captured in a
+    CUDA graph are recorded again by every replay, and time one known
+    kernel (a 256 MB in-place scale) as plain events around it eagerly do."""
+    from fastslam_tpu_torch.utils import profiling
+
+    x = torch.ones(1 << 26, device=device)
+    work = lambda: x.mul_(1.0)
+    eager = [profiling.elapsed_ms(work, device) for _ in range(7)]
+    marks = profiling.EventMarks(device, stages=("work",))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        marks.start()
+        work()
+        marks("work")
+    replayed = []
+    for _ in range(7):
+        before = torch.cuda.Event(enable_timing=True)
+        before.record()
+        graph.replay()
+        torch.cuda.synchronize(device)
+        replayed.append(marks.stage_ms()["work"])
+        # this replay recorded the marks again, after ``before``
+        assert before.elapsed_time(marks._ends[None]) >= 0.0
+    ratio = float(np.median(replayed) / np.median(eager))
+    assert min(replayed) > 0.0 and 0.5 < ratio < 2.0, (replayed, eager)
+    assert torch.equal(x, torch.ones_like(x))
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"proposal_mode": "fastslam2", "use_icp_proposal": True, "icp_blend": 0.0,
+     "adaptive_proposal_floors": True},
+])
+def test_traced_fused_graph_equals_eager(device, kw):
+    """Inside a profiler session the fused tick's graph, marks and counters
+    in, replays bit for bit as the untraced eager tick runs, and each
+    replay's row holds every stage's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastslam_tpu_torch.app.runner import run_driver
+    from fastslam_tpu_torch.drivers.replay import ReplayDriver
+    from fastslam_tpu_torch.utils import profiling
+
+    cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, parity_mode=False,
+                         warmup_iterations=8, **kw)
+    log = small_log(24)
+    profiling.TICK_TRACE.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        traced = run_driver(ReplayDriver(log), cfg, rng=0, device=device)
+    rows = profiling.TICK_TRACE.rows()
+    profiling.TICK_TRACE.clear()
+    eager = run_driver(ReplayDriver(log), cfg, rng=0, device=device, graph=False)
+    assert traced.graph_replays == 23 and len(rows) == 24
+    np.testing.assert_array_equal(np.asarray(traced.est_poses), np.asarray(eager.est_poses))
+    stages = (["icp"] if cfg.use_icp_proposal else []) + ["frontend", "update", "resample"]
+    for r in rows:
+        assert list(r["stages"]) == stages and min(r["stages"].values()) > 0.0
+        tick_ms = next(t1 - t0 for n, _, t0, t1 in r["spans"] if n == "tick") * 1e-6
+        assert sum(r["stages"].values()) < tick_ms
+        assert r["counters"]["resample_due"] in (0.0, 1.0)
+        # the iterations ride the float32 read-back as their bits
+        iters = r["counters"].get("icp_iters", 1.0)
+        assert 1.0 <= iters <= cfg.icp_max_iterations and 2 * iters == int(2 * iters)
+
+
+def test_untraced_and_traced_replays_interleave_bit_for_bit(device):
+    """The fused tick replays its unmarked graph outside a profiler session
+    and its marked graph inside one, on the same static state: ticks traced
+    in turns equal the untraced ticks bit for bit, and only the traced ones
+    keep rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastslam_tpu_torch.app.runner import SLAMRunner
+    from fastslam_tpu_torch.drivers.replay import ReplayDriver
+    from fastslam_tpu_torch.utils import profiling
+
+    cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, parity_mode=False,
+                         warmup_iterations=4, proposal_mode="fastslam2",
+                         use_icp_proposal=True, icp_blend=0.0, adaptive_proposal_floors=True)
+    log = small_log(16)
+
+    def drive(traced_ticks):
+        runner = SLAMRunner(cfg, rng=0, device=device)
+        drv, prev_cmd, outs = ReplayDriver(log), (0.0, 0.0), []
+        for t in range(16):
+            scan = drv.get_laser()
+            pts, valid = scan.to_points()
+            v, w = prev_cmd
+            prev_cmd = drv.commanded_velocity()
+            rot, tr = runner.odometry(v, w, scan.timestamp)
+            if t in traced_ticks:
+                with profile(activities=[ProfilerActivity.CPU]):
+                    runner.tick_fused(pts, valid, rot, tr, v)
+            else:
+                runner.tick_fused(pts, valid, rot, tr, v)
+            outs.append(runner._last_out.copy())
+            drv.step()
+        return runner, np.asarray(outs)
+
+    profiling.TICK_TRACE.clear()
+    plain, want = drive(set())
+    assert profiling.TICK_TRACE.rows() == []
+    traced_ticks = {0, 3, 4, 7, 8, 9, 12}
+    mixed, got = drive(traced_ticks)
+    rows = profiling.TICK_TRACE.rows()
+    profiling.TICK_TRACE.clear()
+    assert mixed._fused.replays == 15 and got.shape == want.shape == (16, 14)
+    np.testing.assert_array_equal(got, want)
+    for name, ref in plain.state.__dict__.items():
+        if ref is not None:
+            assert torch.equal(getattr(mixed.state, name), ref), name
+    assert [r["key"] for r in rows] == sorted(traced_ticks)
+    for r in rows:
+        assert list(r["stages"]) == ["icp", "frontend", "update", "resample"]
+        assert min(r["stages"].values()) > 0.0 and set(r["counters"]) == {"icp_iters",
+                                                                          "resample_due"}
+
+
 def segment_case(kind, device, seed=0):
     """(values [3, n], layout) on ``device``: ragged, skewed (one segment
     of ~50,000 entries), mostly empty (2^20 segments), or all entries in

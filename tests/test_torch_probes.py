@@ -158,15 +158,38 @@ def test_probe_cli_refuses_the_card_it_does_not_have():
 
 
 def test_phase_timer_counts_and_reports():
-    timer = profiling.PhaseTimer()
+    """Phases add to their totals every time, rows of nested spans are kept
+    only inside a profiler session, and both show there as named regions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    timer = profiling.PhaseTimer("probe")
     for _ in range(3):
-        with timer.phase("filter", torch.zeros(2)):
+        with timer.phase("filter"):
             pass
-    with timer.phase("frontend"):
+    with timer.row(0), timer.span("outside"):
         pass
-    summary = timer.summary()
-    assert summary["filter"]["count"] == 3 and summary["frontend"]["count"] == 1
-    assert "filter" in timer.report()
+    assert set(timer.totals) == {"filter"} and timer.totals["filter"] > 0.0
+    assert timer.rows() == [] and not timer.recording
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timer.phase("frontend"):
+            pass
+        with timer.row(7):
+            assert timer.recording
+            with timer.span("submit"), timer.span("fill"):
+                pass
+            with timer.span("wait"):
+                pass
+            timer.note({"update": 0.25}, {"resample_due": 1.0})
+    (row,) = timer.rows()
+    assert row["key"] == 7 and row["stages"] == {"update": 0.25}
+    assert row["counters"] == {"resample_due": 1.0}
+    parents = {name: parent for name, parent, _, _ in row["spans"]}
+    assert parents == {"fill": "submit", "submit": "tick", "wait": "tick", "tick": None}
+    assert all(t0 <= t1 for _, _, t0, t1 in row["spans"])
+    keys = {e.key for e in prof.key_averages()}
+    assert {"probe.frontend", "probe.tick", "probe.tick.submit", "probe.tick.submit.fill",
+            "probe.tick.wait"} <= keys
+    assert timer.totals["frontend"] > 0.0 and "submit" not in timer.totals
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
