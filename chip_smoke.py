@@ -77,13 +77,14 @@ Phases, one line each (or more):
     the wall time per tick with its host-clock split (ICP refinement,
     frontend + step) as ``run_driver`` records it.  Then the production
     path, the fused tick: the first tick eager, then one replay of the
-    captured CUDA graph per tick (299), 300 fs2 and 300 fused ICP launches
-    (replays counted), ATE under 0.05 m, a second run bit for bit, and the
-    same 300 estimates as the fused tick run eagerly on the card (no
-    graph); ms per tick of each, with the card's name and power limit; the
-    graph's device time per replay and its top kernels, and the cost of the
-    resample decided on the device and of the copy back into the static
-    state;
+    captured CUDA graph per tick (299), 300 fs2, 300 fused ICP and 300 of
+    each resample launch (replays counted), ATE under 0.05 m, a second run
+    bit for bit, and the same 300 estimates as the fused tick run eagerly
+    on the card (no graph); ms per tick of each, with the card's name and power limit; the
+    graph's device time per replay, its kernels per replay and its top
+    kernels, and the cost of the resample decided on the device with no
+    resample due and of the copies back into the static state that remain
+    (poses and weights: the planes and counts are the state's own);
 13. the ring halo exchange kernel against its plain version: S in {1, 2, 4,
     8} shards of P=100,000 particles at L=64 (blocks of 389 floats per
     particle) and a ragged case (12,501 particles per shard at S=8); equal
@@ -239,7 +240,11 @@ Phases, one line each (or more):
 31. ``probes.compare`` (``scripts/bench_compare.py``): the blocks step with
     the per-tick kernel and with the plain measurement loop, 20 steps
     after 3 warm ones; rows 1–4 against their plain versions on one shared
-    state, every pair 0 apart;
+    state, every pair 0 apart; the device-decided resample's staircase and
+    gather (``csrc/resample.cu``) against their plain versions at P=100,000,
+    L=64, 0 apart, each timed with a resample due and not due (20 calls in
+    one CUDA graph) beside its bound, the plain versions and the parent's
+    ATen path (``torch.cummax`` and ``index_select``);
 32. ``probes.e2e_attribution``: the K-sweep (16, 64, 192) of frontend +
     planes step in one graph each and its linear fit, the frontend and the
     filter alone at K=192, and ``SLAMRunner.tick_fused`` over the same 192
@@ -314,6 +319,13 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     # fastslam_tpu/backend/pose_graph.py:315-419
     "segment_sum": ("fastslam_tpu_torch/csrc/segment_sum.cu",
                     "fastslam_tpu/backend/pose_graph.py:315"),
+    # port-only: no Pallas kernel; they replace the resample under lax.cond
+    # of fastslam_tpu/core/kernels.py:_normalize_and_resample (its staircase
+    # and its gather)
+    "resample_staircase": ("fastslam_tpu_torch/csrc/resample.cu",
+                           "fastslam_tpu/core/kernels.py:grid_staircase_indices"),
+    "resample_gather": ("fastslam_tpu_torch/csrc/resample.cu",
+                        "fastslam_tpu/core/kernels.py:resample_planes_state"),
 }
 MOTION = ("fused_update_planes", "fused_update_planes_multi")
 FS2 = ("fused_fs2_planes", "fused_fs2_planes_multi")
@@ -337,8 +349,10 @@ ONLINE_TICK = 150    # the online batch of phases 9-10: this tick's two matches
 ADAPTIVE_LAUNCHES = {"fused_fs2_planes_multi": 37, "fused_fs2_planes": 4, "icp_point_to_line": 1}
 ONLINE_LAUNCHES = {"fused_fs2_planes": 300, "icp_point_to_line": 299}
 # the fused tick: one 2-pair ICP launch in every tick (the first tick's is
-# masked by has_prev), replays counted
-ONLINE_FUSED_LAUNCHES = {"fused_fs2_planes": 300, "icp_point_to_line": 300}
+# masked by has_prev) and the device-decided resample's two calls, replays
+# counted
+ONLINE_FUSED_LAUNCHES = {"fused_fs2_planes": 300, "icp_point_to_line": 300,
+                         "resample_staircase": 300, "resample_gather": 300}
 TRACE_ATE = 0.06     # the JdeRobot traces on the fused loop (EVAL.md:72, ~2x)
 SIN_COS_VALUES = 100_000_000
 FMA_RTOL = 1e-6      # fma_chain vs its plain version: rare double roundings
@@ -402,7 +416,9 @@ def ptxas_summary(report: str):
             plain = next((k for k in ("icp_nn_kernel", "icp_point_to_line_kernel",
                                       "icp_sin_cos_kernel", "ring_halo_kernel",
                                       "hbm_copy_kernel", "mul_add_kernel",
-                                      "fma_chain_kernel", "segment_sum_kernel")
+                                      "fma_chain_kernel", "segment_sum_kernel",
+                                      "staircase_tile_sums", "staircase_counts",
+                                      "staircase_ancestors", "gather_kernel")
                           if k in entry.group(1)), entry.group(1))
             name = (f"{m.group(1)}<{','.join(re.findall('Lb([01])E', m.group(2)))}>"
                     if m else plain)
@@ -1649,8 +1665,11 @@ def fused_breakdown(log, card):
     """Where the fused tick's time goes: the device time of one replay of
     its graph (CUDA events), the graph's kernels by device time under
     ``torch.profiler``, and at the bench geometry the cost of the resample
-    decided on the device (staircase and identity gather) beside the host
-    branch (no resample due), and of the copy back into the static state."""
+    decided on the device (the kernels of ``csrc/resample.cu``, which
+    return at once) beside the host branch (no resample due), and of the
+    copies back into the static state that remain: the planes and counts
+    the step returns are the state's own, and a copy onto itself is
+    skipped."""
     import math
 
     import torch
@@ -1690,7 +1709,7 @@ def fused_breakdown(log, card):
     device_ms = time_ms(
         lambda: kernels._normalize_and_resample(state, u0, cfg, on_device=True), 20)
     target = state.clone()
-    pairs = [(getattr(target, k), v) for k, v in state.__dict__.items() if v is not None]
+    pairs = [(getattr(target, k), getattr(state, k)) for k in ("poses", "log_weights")]
     copy_ms = time_ms(lambda: [d.copy_(x) for d, x in pairs], 20)
     state_mb = sum(v.numel() * v.element_size() for _, v in pairs) / 1e6
     phase(12, f"fused tick's graph on {card}: {replay_ms:.4f} ms of device time per replay "
@@ -1699,8 +1718,9 @@ def fused_breakdown(log, card):
               + "; ".join(f"{k[:48]} {t:.4f} ms x{c:.0f}" for k, t, c in top))
     phase(12, f"resample decided on the device at P={P} L={L} (no resample due): "
               f"{device_ms:.4f} ms against the host branch's {host_ms:.4f} ms "
-              f"(+{device_ms - host_ms:.4f} ms: the staircase and the identity gather of "
-              f"{state_mb:.1f} MB); the copy back into the static state {copy_ms:.4f} ms")
+              f"(+{device_ms - host_ms:.4f} ms of eager calls, paced by the host's launches of "
+              f"kernels that return at once: phase 31 times them in a graph); the copies "
+              f"back of poses and weights ({state_mb:.1f} MB) {copy_ms:.4f} ms")
     return {"replay_ms": replay_ms, "busy_ms": busy, "gather_ms": device_ms - host_ms,
             "copy_ms": copy_ms}
 
@@ -3069,9 +3089,19 @@ def phase31():
         phase(31, f"row {r['row']} {r['kernel']}: {r['ms']:.4f} ms per tick, plain "
                   f"{r['plain_ms']:.4f} ({r['updates_per_s']:,} vs {r['plain_updates_per_s']:,} "
                   f"updates/s), max |diff| 0")
+    r = rec["resample"]
+    if r["max_abs_diff"] != 0.0:
+        raise AssertionError(f"probes.compare: the resample's kernels differ from their plain "
+                             f"versions by {r['max_abs_diff']}")
+    phase(31, f"resample at P={P} L={L}: {r['ms']['due']:.4f} ms due (staircase "
+              f"{r['staircase_ms']['due']:.4f}, gather {r['gather_ms']['due']:.4f}; bound "
+              f"{r['bound_ms']['due']:.4f}), {r['ms']['not_due']:.4f} ms not due (staircase "
+              f"{r['staircase_ms']['not_due']:.4f}, gather {r['gather_ms']['not_due']:.4f}; "
+              f"bound 0); plain {r['plain_ms']:.4f}, ATen (torch.cummax, index_select) "
+              f"{r['library_ms']:.4f}; max |diff| 0")
     phase(31, f"probes.compare in {wall:.1f} s; launches "
               f"{({k: n for k, n in launches.items() if n})}")
-    return launches
+    return launches, r
 
 
 def phase32():
@@ -3281,7 +3311,13 @@ def main() -> int:
     paths["slip_diagnosis"] = phase28(card)
     phase29()
     paths["step"] = phase30()
-    paths["compare"] = phase31()
+    paths["compare"], resample = phase31()
+    for name, part in (("resample_staircase", "staircase_ms"), ("resample_gather", "gather_ms")):
+        errs[name] = resample["max_abs_diff"]
+        times[name] = (resample[part]["due"], resample["plain_ms"], resample["library_ms"])
+    # the bound is the pair's: one read and one write of the state where due
+    bounds["resample_staircase"] = bounds["resample_gather"] = (resample["bound_ms"]["due"],
+                                                                "bytes")
     paths["e2e_attribution"] = phase32()
     paths["collective_bytes"] = phase33()
     paths["scaling"] = phase34()

@@ -26,6 +26,7 @@ runner.
 
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional
@@ -665,15 +666,24 @@ class _FusedTick:
         and again with the stage marks for the traced ticks.  The second
         shares the first's memory pool: its temporaries may lie where the
         first's do, which is safe because each tick reads its output before
-        the next replay."""
+        the next replay.  Garbage collection waits until both are captured:
+        a collection during a capture can free an unreachable CUDA graph,
+        and a graph's teardown while a stream captures invalidates the
+        capture."""
         before = dict(cuda_kernels.LAUNCHES)
-        for traced in (False, True):
-            graph = torch.cuda.CUDAGraph()
-            pool = self.graph.pool() if traced else None
-            with torch.cuda.device(self.runner.device), torch.cuda.graph(graph, pool=pool):
-                self._graphs[traced] = (graph, self._body(self._marks if traced else None))
-            if not traced:
-                self.graph = graph
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for traced in (False, True):
+                graph = torch.cuda.CUDAGraph()
+                pool = self.graph.pool() if traced else None
+                with torch.cuda.device(self.runner.device), torch.cuda.graph(graph, pool=pool):
+                    self._graphs[traced] = (graph, self._body(self._marks if traced else None))
+                if not traced:
+                    self.graph = graph
+        finally:
+            if collecting:
+                gc.enable()
         # the captures launched nothing: take their counts back; a replay
         # adds one capture's
         spent = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before

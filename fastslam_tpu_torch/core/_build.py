@@ -61,6 +61,8 @@ _SIGNATURES = {
     "mul_add_launch": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "fma_chain_launch": [_I] + [_P] * 2 + [_I] * 2 + [_P],
     "segment_sum_launch": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    "resample_staircase_launch": [_I] + [_P] * 6 + [_I, _P],
+    "resample_gather_launch": [_I] + [_P] * 4 + [_I] + [_P] * 2 + [_I, _P],
 }
 
 

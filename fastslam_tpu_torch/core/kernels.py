@@ -166,18 +166,13 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def grid_staircase_indices(cum: torch.Tensor, u0: torch.Tensor,
-                           n: int) -> torch.Tensor:
-    """``clip(searchsorted(cum, u0 + arange(n)/n, 'left'), 0, n-1)`` without
-    the search: count the grid points at or below each ``cum_j`` in closed
-    form (with two float corrections each way against the exact grid
-    values), then invert the staircase with a scatter-max and a prefix-max.
-    Returns int64 indices, bit-identical to the JAX function on the same
-    ``cum`` (its scatter-max becomes ``scatter_reduce(amax)``, its
-    ``associative_scan(max)`` becomes ``cummax``)."""
+def grid_counts(cum: torch.Tensor, u0: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 ``[n]``: the number of grid points ``u0 + m/n``, m in
+    ``[0, n)``, at or below each ``cum_j``, in closed form with two float
+    corrections each way against the grid values; non-decreasing where
+    ``cum`` is."""
     dt = cum.dtype
-    device = cum.device
-    u0 = torch.as_tensor(u0, dtype=dt, device=device)
+    u0 = torch.as_tensor(u0, dtype=dt, device=cum.device)
     grid = lambda m: u0 + m.to(dt) / n
     s = torch.ceil((cum - u0) * n).to(torch.int64)
     s = torch.clamp(s, 0, n)
@@ -185,6 +180,19 @@ def grid_staircase_indices(cum: torch.Tensor, u0: torch.Tensor,
         s = torch.where((s > 0) & (grid(s - 1) > cum), s - 1, s)
     for _ in range(2):
         s = torch.where((s < n) & (grid(s) <= cum), s + 1, s)
+    return s
+
+
+def grid_staircase_indices(cum: torch.Tensor, u0: torch.Tensor,
+                           n: int) -> torch.Tensor:
+    """``clip(searchsorted(cum, u0 + arange(n)/n, 'left'), 0, n-1)`` without
+    the search: count the grid points at or below each ``cum_j``
+    (:func:`grid_counts`), then invert the staircase with a scatter-max and
+    a prefix-max.  Returns int64 indices, bit-identical to the JAX function
+    on the same ``cum`` (its scatter-max becomes ``scatter_reduce(amax)``,
+    its ``associative_scan(max)`` becomes ``cummax``)."""
+    device = cum.device
+    s = grid_counts(cum, u0, n)
 
     # each positive-count j owns the output run [S_{j-1}, S_j): scatter j at
     # its run start and forward-fill with a prefix max; zero-count entries go
@@ -250,6 +258,32 @@ def estimate_pose(state) -> torch.Tensor:
     return state.poses.index_select(0, torch.argmax(state.log_weights).reshape(1))[0]
 
 
+def _resample_planes_in_place(state: PlanesState, u0: torch.Tensor, due: torch.Tensor,
+                              config: FastSLAMConfig) -> PlanesState:
+    """The systematic resample of a planes state where the device bool
+    ``due`` holds, decided on the device: the staircase and the gather of
+    :func:`~fastslam_tpu_torch.core.cuda_kernels.resample_staircase` and
+    :func:`~fastslam_tpu_torch.core.cuda_kernels.resample_gather` (kernels
+    on CUDA, each a no-op where ``due`` is false; their plain versions on
+    the CPU).  The poses, planes and counts are gathered in place, and so
+    are the weights in parity mode; production weights become uniform by the
+    same decision.  The returned state holds the caller's own tensors but
+    for the production weights."""
+    idx = cuda_kernels.resample_staircase(torch.exp(state.log_weights), u0, due)
+    planes = [t for t in (state.lm_mx, state.lm_my, state.lm_ca, state.lm_cb, state.lm_cc,
+                          state.lm_cd) if t is not None]
+    per_particle = [state.poses, state.lm_count]
+    if config.parity_mode:
+        per_particle.append(state.log_weights)
+    cuda_kernels.resample_gather(planes, per_particle, idx, due)
+    if config.parity_mode:
+        return state
+    n = state.num_particles
+    uniform = torch.full((n,), -math.log(n), dtype=state.log_weights.dtype,
+                         device=state.device)
+    return state.replace(log_weights=torch.where(due, uniform, state.log_weights))
+
+
 def _normalize_and_resample(state, u0: torch.Tensor, config: FastSLAMConfig,
                             resample=resample_planes_state, *, on_device: bool = False,
                             marks=None):
@@ -258,15 +292,15 @@ def _normalize_and_resample(state, u0: torch.Tensor, config: FastSLAMConfig,
 
     The host reads the decision ``neff < threshold * P`` and gathers only
     when it holds.  ``on_device=True`` keeps the decision on the device, as
-    JAX's ``lax.cond`` does, so a CUDA graph can capture the step: the
-    staircase indices are always computed from the same ``u0``, replaced by
-    ``arange(P)`` when no resample is due, and the state is always gathered;
-    the weights are the resampled ones or the normalized ones by the same
-    decision.  An identity gather copies every value, so both forms leave
-    the same state bit for bit; the device form costs one read and one write
-    of the state per tick.  ``marks`` (``utils/profiling.py:EventMarks``),
-    when given, keeps ``neff``, from which a reader decides, as here,
-    whether the resample was due."""
+    JAX's ``lax.cond`` does, so a CUDA graph can capture the step.  A planes
+    state then goes through :func:`_resample_planes_in_place`: the
+    kernels read the decision and do nothing when no resample is due, and
+    the state's planes, counts and poses are gathered in place.  A blocks
+    state computes the staircase from the same ``u0`` every time, replaced
+    by ``arange(P)`` when no resample is due, and is always gathered.  Every
+    form leaves the same state bit for bit.  ``marks``
+    (``utils/profiling.py:EventMarks``), when given, keeps ``neff``, from
+    which a reader decides, as here, whether the resample was due."""
     log_w = normalize_log_weights(state.log_weights, config)
     state = state.replace(log_weights=log_w)
     p = state.num_particles
@@ -279,6 +313,8 @@ def _normalize_and_resample(state, u0: torch.Tensor, config: FastSLAMConfig,
             idx = systematic_resample_indices(torch.exp(log_w), u0)
             state = resample(state, idx, config)
         return state
+    if isinstance(state, PlanesState):
+        return _resample_planes_in_place(state, u0, do_resample, config)
     idx = systematic_resample_indices(torch.exp(log_w), u0)
     idx = torch.where(do_resample, idx, torch.arange(p, device=idx.device))
     gathered = resample(state, idx, config)

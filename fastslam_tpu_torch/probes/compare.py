@@ -29,6 +29,18 @@ shared state, seeded by 3 plain ticks, with the same inputs: ms per tick
 the largest absolute difference of any output of one call from the shared
 state.  On the CPU both sides of a pair are the plain version.
 
+Then the device-decided resample (``csrc/resample.cu``: the staircase
+``cuda_kernels.resample_staircase`` and the in-place gather
+``cuda_kernels.resample_gather``) at the main path's shapes (production:
+five planes, poses and counts) against their plain versions: ms per call
+with a resample due and not due (``--steps`` calls replayed in one CUDA
+graph, CUDA events), the bound (one read and one write of the state where
+due, nothing where not), the plain versions' ms, and the ATen path the
+parent ran (``fixed_order_cumsum``, ``grid_staircase_indices`` with its
+``torch.cummax``, ``resample_planes_state``'s ``index_select``) as the
+library yardstick; and the largest difference of the kernels' ancestors
+and state from the plain versions'.
+
 Prints one JSON line, with the card's name and power limit::
 
     python -m fastslam_tpu_torch.probes.compare [--particles 100000] [--steps 20] \\
@@ -230,6 +242,83 @@ def planes_rows(particles: int, landmarks: int, measurements: int, steps: int,
     return out
 
 
+# the H100's published memory rate (bytes per second), which bounds the resample
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def graph_ms(fn, reps: int, device) -> float:
+    """ms per call of ``fn()``: on the card ``reps`` calls replayed in one
+    CUDA graph (``segment_sum_turns.replay_ms``), so the host's launch cost
+    is not timed; on the CPU the host clock."""
+    if device.type == "cuda":
+        from fastslam_tpu_torch.probes.segment_sum_turns import replay_ms
+
+        return replay_ms(fn, reps)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def resample_row(particles: int, landmarks: int, steps: int, plain_steps: int, device,
+                 seed: int = 0) -> dict:
+    """The resample's two kernels against their plain versions and the
+    parent's ATen path, on one random production state and spread weights."""
+    cfg = FastSLAMConfig(num_particles=particles, max_landmarks=landmarks, parity_mode=False)
+    p = particles
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_planes_state(cfg, device)
+    for t in (state.lm_mx, state.lm_my, state.lm_ca, state.lm_cb, state.lm_cd, state.poses):
+        t.normal_(generator=gen)
+    state.lm_count.random_(0, landmarks + 1, generator=gen)
+    log_w = kernels.normalize_log_weights(
+        3.0 * torch.randn(p, generator=gen, device=device), cfg)
+    w = torch.exp(log_w)
+    u0 = torch.rand((), generator=gen, device=device) / p
+    flags = {"due": torch.tensor(True, device=device),
+             "not_due": torch.tensor(False, device=device)}
+    buffers = lambda s: ([s.lm_mx, s.lm_my, s.lm_ca, s.lm_cb, s.lm_cd], [s.poses, s.lm_count])
+    due = flags["due"]
+    idx = cuda_kernels.resample_staircase(w, u0, due)
+    idx_ref = cuda_kernels.resample_staircase_ref(w, u0, due)
+    got, want = state.clone(), state.clone()
+    cuda_kernels.resample_gather(*buffers(got), idx, due)
+    cuda_kernels.resample_gather_ref(*buffers(want), idx_ref, due)
+    diff = max(max_abs_diff([idx], [idx_ref]),
+               max_abs_diff(sum(buffers(got), []), sum(buffers(want), [])))
+    work = state.clone()
+    stair = {k: graph_ms(lambda f=f: cuda_kernels.resample_staircase(w, u0, f), steps, device)
+             for k, f in flags.items()}
+    gather = {k: graph_ms(lambda f=f: cuda_kernels.resample_gather(*buffers(work), idx, f),
+                          steps, device) for k, f in flags.items()}
+
+    def plain():
+        i = cuda_kernels.resample_staircase_ref(w, u0, due)
+        cuda_kernels.resample_gather_ref(*buffers(work), i, due)
+
+    def library():
+        i = kernels.grid_staircase_indices(kernels.fixed_order_cumsum(w), u0, p)
+        kernels.resample_planes_state(work, i, cfg)
+
+    plain_ms = time_call(lambda _: plain(), None, plain_steps, 1, device)
+    library_ms = time_call(lambda _: library(), None, steps, WARM, device)
+    state_bytes = sum(t.numel() * t.element_size() for t in sum(buffers(state), []))
+    bound_ms = (2 * state_bytes + w.numel() * 4 + idx.numel() * 8) / PEAK_BYTES_PER_S * 1e3
+    ms = {k: stair[k] + gather[k] for k in flags}
+    print(f"resample: {ms['due']:.4f} ms due (staircase {stair['due']:.4f}, gather "
+          f"{gather['due']:.4f}), {ms['not_due']:.4f} not due; bound {bound_ms:.4f} / 0; "
+          f"plain {plain_ms:.4f}, ATen {library_ms:.4f}; max |diff| {diff:.3e}",
+          file=sys.stderr)
+    return {"kernels": ["resample_staircase", "resample_gather"], "state_bytes": state_bytes,
+            "ms": {k: round(v, 4) for k, v in ms.items()},
+            "staircase_ms": {k: round(v, 4) for k, v in stair.items()},
+            "gather_ms": {k: round(v, 4) for k, v in gather.items()},
+            "bound_ms": {"due": round(bound_ms, 4), "not_due": 0.0},
+            "plain_ms": round(plain_ms, 4), "library_ms": round(library_ms, 4),
+            "max_abs_diff": diff}
+
+
 def run(device="cuda", particles: int = 100_000, landmarks: int = 64, measurements: int = 16,
         steps: int = 20, plain_steps: int = 3, only=None) -> dict:
     """Both variants of the blocks step and the four planes rows; returns
@@ -249,6 +338,7 @@ def run(device="cuda", particles: int = 100_000, landmarks: int = 64, measuremen
             "steps": steps, "blocks_step": blocks,
             "planes_kernels": planes_rows(particles, landmarks, measurements, steps,
                                           plain_steps, device),
+            "resample": resample_row(particles, landmarks, steps, plain_steps, device),
             **device_fields(device)}
 
 

@@ -1390,7 +1390,12 @@ def test_step_probe_graph_equals_eager(device, flags):
                        str(M), "--k", "5"] + flags)
     rec = step.run(args)
     assert rec["graph"] and rec["draws"] == "eager_static"
-    assert sum(rec["launches_per_replay"].values()) == 5     # one kernel launch per step
+    launches = dict(rec["launches_per_replay"])
+    # a planes step decides its resample on the card: the staircase and the gather
+    resamples = 5 if (args.planes or args.chunk) and not args.fused_only else 0
+    assert launches.pop("resample_staircase", 0) == resamples
+    assert launches.pop("resample_gather", 0) == resamples
+    assert sum(launches.values()) == 5     # one filter kernel launch per step
 
 
 def test_on_device_steps_capture(device):
@@ -1439,6 +1444,146 @@ def test_on_device_steps_capture(device):
     for name, v in vars(want).items():
         assert (v is None and getattr(got, name) is None) or torch.equal(getattr(got, name), v)
     assert torch.equal(est, want_est)
+
+
+def resample_weight_cases(p, seed):
+    """Weights of the staircase's edge cases at ``p`` particles (float32):
+    a spread, one dominant weight, runs of zero weights, an undersum tail
+    and equal weights (every cumulative sum near a grid point)."""
+    rng = np.random.default_rng(seed)
+    spread = rng.dirichlet(np.full(p, 0.5))
+    dominant = np.full(p, 1e-12)
+    dominant[rng.integers(p)] = 1.0
+    zero_runs = np.zeros(p)
+    picked = rng.integers(0, p, p // 8)
+    zero_runs[picked] = rng.uniform(0.5, 1.0, picked.shape[0])
+    cases = {"spread": spread, "dominant": dominant / dominant.sum(),
+             "zero_runs": zero_runs / zero_runs.sum(), "undersum": spread * 0.97,
+             "equal": np.full(p, 1.0 / p)}
+    return {k: v.astype(np.float32) for k, v in cases.items()}
+
+
+def resample_buffers(state, parity):
+    planes = [t for t in (state.lm_mx, state.lm_my, state.lm_ca, state.lm_cb, state.lm_cc,
+                          state.lm_cd) if t is not None]
+    return planes, [state.poses, state.lm_count] + ([state.log_weights] if parity else [])
+
+
+@pytest.mark.parametrize("parity", [False, True])
+def test_resample_kernels_match_plain_at_bench_size(device, parity):
+    """At P = 100,000, L = 64 the staircase kernel equals the ATen
+    staircase the parent ran on the card (``grid_staircase_indices`` of
+    ``fixed_order_cumsum``) and its plain version, for every weight case
+    and offset; the gather equals ``resample_planes_state``."""
+    p, l = 100_000, 64
+    cfg = FastSLAMConfig(num_particles=p, max_landmarks=l, parity_mode=parity)
+    due = torch.tensor(True, device=device)
+    before = dict(cuda_kernels.LAUNCHES)
+    calls = 0
+    for case, w in resample_weight_cases(p, 3).items():
+        w = torch.from_numpy(w).to(device)
+        for u0 in (0.0, 1e-7 / p, 0.3 / p, (p - 1) / (p * p)):
+            u = torch.tensor(u0, dtype=torch.float32, device=device)
+            want = kernels.grid_staircase_indices(kernels.fixed_order_cumsum(w), u, p)
+            got = cuda_kernels.resample_staircase(w, u, due)
+            torch.cuda.synchronize()
+            calls += 1
+            assert torch.equal(got, want), f"{case} u0={u0}"
+            assert torch.equal(got, cuda_kernels.resample_staircase_ref(w, u, due))
+    state = init_planes_state(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    for t in resample_buffers(state, parity)[0] + [state.poses, state.log_weights]:
+        t.normal_(generator=gen)
+    state.lm_count.random_(0, l + 1, generator=gen)
+    idx = cuda_kernels.resample_staircase(
+        torch.from_numpy(resample_weight_cases(p, 5)["spread"]).to(device),
+        torch.tensor(0.4 / p, device=device), due)
+    want = kernels.resample_planes_state(state.clone(), idx, cfg)
+    cuda_kernels.resample_gather(*resample_buffers(state, parity), idx, due)
+    torch.cuda.synchronize()
+    for k, v in vars(state).items():
+        if v is not None and (k != "log_weights" or parity):
+            assert torch.equal(v, getattr(want, k)), k
+    assert cuda_kernels.LAUNCHES["resample_staircase"] == before["resample_staircase"] + calls + 1
+    assert cuda_kernels.LAUNCHES["resample_gather"] == before["resample_gather"] + 1
+
+
+def test_resample_not_due_touches_no_buffer(device):
+    """With no resample due the gather leaves every buffer where and as it
+    was, whatever the ancestors hold."""
+    p, l = 100_000, 64
+    cfg = FastSLAMConfig(num_particles=p, max_landmarks=l, parity_mode=True)
+    state = init_planes_state(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(6)
+    planes, rows = resample_buffers(state, True)
+    for t in planes + [state.poses, state.log_weights]:
+        t.normal_(generator=gen)
+    state.lm_count.random_(0, l + 1, generator=gen)
+    copies = [t.clone() for t in planes + rows]
+    pointers = [t.data_ptr() for t in planes + rows]
+    due = torch.tensor(False, device=device)
+    idx = cuda_kernels.resample_staircase(torch.full((p,), 1.0 / p, device=device),
+                                          torch.zeros((), device=device), due)
+    idx.fill_(p - 1)                # ancestors it must not read
+    cuda_kernels.resample_gather(planes, rows, idx, due)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in planes + rows] == pointers
+    for t, c in zip(planes + rows, copies):
+        assert torch.equal(t, c)
+
+
+def test_resample_graph_equals_eager_over_due_and_quiet_ticks(device):
+    """``_normalize_and_resample(on_device=True)`` captured in a CUDA graph
+    over static buffers, replayed over ticks of which some resample and some
+    do not, equals the same ticks run eagerly bit for bit; the graph's state
+    is the caller's own planes, counts and poses."""
+    p, l = 100_000, 64
+    cfg = FastSLAMConfig(num_particles=p, max_landmarks=l, parity_mode=False)
+    gen = torch.Generator(device=device).manual_seed(8)
+    start = init_planes_state(cfg, device)
+    for t in resample_buffers(start, False)[0] + [start.poses]:
+        t.normal_(generator=gen)
+    start.lm_count.random_(0, l + 1, generator=gen)
+    spreads = [4.0, 0.0, 0.0, 3.0, 0.0, 5.0]     # wide spreads resample
+    ticks = [(torch.randn(p, device=device, generator=gen) * s,
+              torch.rand((), device=device, generator=gen) / p) for s in spreads]
+    static, static_u0 = start.clone(), torch.zeros((), device=device)
+
+    def body():
+        new = kernels._normalize_and_resample(static, static_u0, cfg, on_device=True)
+        for name, dst in vars(static).items():
+            if dst is not None:
+                dst.copy_(getattr(new, name))
+        return new
+
+    # builds the kernels and warms the allocator on a copy, off the capture
+    kernels._normalize_and_resample(start.clone(), static_u0, cfg, on_device=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        new = body()
+    assert all(getattr(new, k) is getattr(static, k)
+               for k in ("lm_mx", "lm_my", "lm_ca", "lm_cb", "lm_cd", "lm_count"))
+    eager, due_ticks = start.clone(), 0
+    for lw, u0 in ticks:
+        neff = kernels.effective_particles(kernels.normalize_log_weights(lw, cfg), cfg)
+        due_ticks += bool(neff < cfg.resample_threshold_frac * p)
+        eager = kernels._normalize_and_resample(eager.replace(log_weights=lw.clone()),
+                                                u0.clone(), cfg, on_device=True)
+        static.log_weights.copy_(lw)
+        static_u0.copy_(u0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for k, v in vars(eager).items():
+            assert (v is None) == (getattr(static, k) is None), k
+            assert v is None or torch.equal(v, getattr(static, k)), k
+    assert 0 < due_ticks < len(ticks)
+    # the device form against the host-decided one from the same start
+    host = start.clone()
+    for lw, u0 in ticks:
+        host = kernels._normalize_and_resample(host.replace(log_weights=lw.clone()), u0, cfg)
+    for k, v in vars(host).items():
+        assert v is None or torch.equal(v, getattr(static, k)), k
 
 
 if __name__ == "__main__":

@@ -132,6 +132,40 @@ def test_chunked_step_on_device_equals_host(fs2, threshold):
     assert uniform[0] == (threshold > 0)
 
 
+@pytest.mark.parametrize("threshold", [0.5, 0.0], ids=["resamples", "no-resample"])
+@pytest.mark.parametrize("parity", [False, True], ids=["production", "parity"])
+def test_planes_step_on_device_equals_host(parity, threshold):
+    """Two ticks of ``fastslam_step_planes`` each way from the same state and
+    draws: the device form, whose resample is the staircase and the in-place
+    gather of ``cuda_kernels`` (their plain versions here), against the
+    host-decided one; the device form returns the caller's own planes and
+    counts, resampled or not."""
+    p, l, m = 256, 16, 8
+    cfg = config_from_jax_fields(dataclasses.asdict(base_config(parity, p, l, m)))
+    cfg = cfg.replace(resample_threshold_frac=threshold)
+    st = seeded_planes(p, l, seed=41, fill=6, parity=parity)
+    st["log_weights"] = np.random.default_rng(42).normal(-3, 2.5, p).astype(np.float32)
+    z, z_valid = measurements(m, seed=43)
+    ms = Measurements(torch.from_numpy(z), torch.from_numpy(z_valid))
+    gen = torch.Generator().manual_seed(9)
+    host = planes_state_from_numpy(st, "cpu")
+    dev, quiet = host.clone(), host.clone()
+    never = cfg.replace(resample_threshold_frac=0.0)
+    own = lambda s: [s.lm_mx, s.lm_my, s.lm_ca, s.lm_cb, s.lm_cc, s.lm_cd, s.lm_count]
+    for _ in range(2):
+        draws = kernels.draw(gen, p)
+        host, pose_h = kernels.fastslam_step_planes(host, 0.0, 0.4, ms, cfg, draws)
+        mine = own(dev)
+        dev, pose_d = kernels.fastslam_step_planes(dev, 0.0, 0.4, ms, cfg, draws,
+                                                   on_device=True)
+        assert all(a is b for a, b in zip(own(dev), mine))
+        assert_same(host, dev)
+        assert torch.equal(pose_h, pose_d)
+        quiet, _ = kernels.fastslam_step_planes(quiet, 0.0, 0.4, ms, never, draws)
+    # whether a tick resampled: against the same ticks that never do
+    assert torch.equal(quiet.poses, dev.poses) == (threshold == 0.0)
+
+
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_blocks_step_on_device_matches_jax(case):
     """Two ticks of the device form against JAX's ``fastslam_step`` with

@@ -183,6 +183,10 @@ def test_compare_record(capsys):
     assert rec["blocks_step"]["kernel"]["pose"] == rec["blocks_step"]["plain"]["pose"]
     assert [r["row"] for r in rec["planes_kernels"]] == [1, 2, 3, 4]
     assert all(r["max_abs_diff"] == 0.0 for r in rec["planes_kernels"])
+    resample = rec["resample"]
+    assert resample["max_abs_diff"] == 0.0
+    assert set(resample["ms"]) == set(resample["bound_ms"]) == {"due", "not_due"}
+    assert resample["bound_ms"]["not_due"] == 0.0
     assert rec["device"] == "cpu" and rec["power_limit_w"] is None
 
 
