@@ -11,6 +11,10 @@
 #   SKIP_INSTALL=1 deploy/launch_torch.sh           # pipeline only (already installed)
 #   SKIP_INSTALL=1 DEVICE=cpu deploy/launch_torch.sh                  # no GPU
 #   PARTICLES=100000 TICKS=2000 CHUNK=16 deploy/launch_torch.sh      # scale it up
+#   CHECKPOINT=runs/ck.npz SERIALIZE=workspace/shared/fast_slam.json \
+#     deploy/launch_torch.sh     # the online loop with its production hooks: health,
+#                                # metrics ($OUT/metrics.jsonl), a checkpoint every
+#                                # 200 ticks, a viewer snapshot every 10
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
@@ -34,5 +38,13 @@ RUN_ARGS=(run --log "$OUT/log.npz" --particles "$PARTICLES" --production
           --device "$DEVICE")
 if [ "$CHUNK" != "0" ]; then
   RUN_ARGS+=(--chunk "$CHUNK")
+fi
+# the production hooks run in the online loop (CHUNK=0)
+if [ -n "${CHECKPOINT:-}" ]; then
+  RUN_ARGS+=(--health --metrics "$OUT/metrics.jsonl" --checkpoint "$CHECKPOINT"
+             --checkpoint-every 200)
+fi
+if [ -n "${SERIALIZE:-}" ]; then
+  RUN_ARGS+=(--serialize "$SERIALIZE" --serialize-every 10)
 fi
 python -m fastslam_tpu_torch "${RUN_ARGS[@]}"

@@ -26,7 +26,9 @@ runner.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import os
 import time
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional
@@ -693,6 +695,114 @@ class _FusedTick:
         self._tally = {k: count // 2 for k, count in spent.items()}
 
 
+class ProductionHooks:
+    """The online loop's production hooks, run after each tick's filter step
+    by :meth:`after_tick`, in this order:
+
+    * ``health``: the health check (:class:`~fastslam_tpu_torch.utils.health.
+      HealthMonitor`), with a recovery from ``checkpoint_path`` or a
+      re-initialization when the state is no longer finite;
+    * ``metrics``: a ``tick`` record in the JSONL ``metrics_path`` (and a
+      ``health`` record for each failed check);
+    * ``serialize``: a viewer snapshot at ``serialize_path`` every
+      ``serialize_every`` ticks, with the global map of
+      :func:`~fastslam_tpu_torch.frontend.global_map.cluster_known_landmarks`;
+    * ``checkpoint``: a checkpoint of the blocks-layout state, the tick, the
+      robot pose and the generator at ``checkpoint_path`` every
+      ``checkpoint_every`` ticks from tick ``checkpoint_every`` on.
+
+    Each hook that runs is timed into ``seconds``.  While a profiler session
+    is active a tick's hooks are the row ``hook`` of
+    :data:`~fastslam_tpu_torch.utils.profiling.HOOK_TRACE`, each hook its
+    span ``fastslam.hook.<name>``, with the counters ``checkpoint_bytes`` (the
+    file a checkpoint wrote), ``snapshot_landmarks`` (the landmarks a
+    snapshot holds), ``health_failed``, ``recoveries``,
+    ``last_checkpoint_tick`` and ``last_snapshot_tick`` (-1 before the
+    first).  The same counts are attributes, kept always."""
+
+    def __init__(self, config: FastSLAMConfig, *, serialize_path: Optional[str] = None,
+                 serialize_every: int = 1, metrics_path: Optional[str] = None,
+                 checkpoint_path: Optional[str] = None, checkpoint_every: int = 200,
+                 health: bool = False):
+        self.config = config
+        self.serialize_path, self.serialize_every = serialize_path, serialize_every
+        self.checkpoint_path, self.checkpoint_every = checkpoint_path, checkpoint_every
+        self.monitor = HealthMonitor(config) if health else None
+        self.metrics = MetricsLog(metrics_path) if metrics_path else None
+        self.on = bool(health or metrics_path or serialize_path or checkpoint_path)
+        self.seconds: dict = {}
+        self.health_checks = self.health_failed = self.recoveries = 0
+        self.checkpoint_bytes = self.snapshot_landmarks = 0
+        self.last_checkpoint_tick = self.last_snapshot_tick = -1
+
+    @contextlib.contextmanager
+    def _hook(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            with profiling.HOOK_TRACE.span(name):
+                yield
+        finally:
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    def after_tick(self, runner: SLAMRunner, tick: int, est, gt, ev: TickEvaluation) -> None:
+        """The hooks after tick ``tick`` (counted from 0), whose estimate is
+        ``est``, ground truth ``gt`` and evaluation ``ev``."""
+        if not self.on:
+            return
+        trace = profiling.HOOK_TRACE
+        with trace.row(tick, "hook"):
+            counters = {}
+            if self.monitor is not None:
+                with self._hook("health"):
+                    self._health(runner, tick, est)
+            if self.metrics:
+                with self._hook("metrics"):
+                    self.metrics.write("tick", tick=tick, distance=ev.distance,
+                                       num_measurements=runner._last_num_measurements)
+            if self.serialize_path and tick % self.serialize_every == 0:
+                with self._hook("serialize"):
+                    cents, ok = cluster_known_landmarks(runner.state_blocks(), self.config)
+                    cents, ok = cents.cpu().numpy(), ok.cpu().numpy()
+                    serialize_tick(est, gt, runner.state.poses.cpu().numpy(),
+                                   [tuple(map(float, c)) for c in cents[ok]],
+                                   ev.to_dict(), path=self.serialize_path)
+                self.snapshot_landmarks, self.last_snapshot_tick = int(ok.sum()), tick
+                counters["snapshot_landmarks"] = self.snapshot_landmarks
+            if self.checkpoint_path and tick and tick % self.checkpoint_every == 0:
+                with self._hook("checkpoint"):
+                    save_checkpoint(self.checkpoint_path, runner.state_blocks(),
+                                    iteration=tick, robot_pose=runner.robot,
+                                    generator=runner._generator)
+                    self.checkpoint_bytes = os.path.getsize(self.checkpoint_path)
+                self.last_checkpoint_tick = tick
+                counters["checkpoint_bytes"] = self.checkpoint_bytes
+            counters.update(health_failed=self.health_failed, recoveries=self.recoveries,
+                            last_checkpoint_tick=self.last_checkpoint_tick,
+                            last_snapshot_tick=self.last_snapshot_tick)
+            trace.note({}, counters)
+
+    def _health(self, runner: SLAMRunner, tick: int, est) -> None:
+        rep = self.monitor.check(runner.state, est)
+        self.health_checks += 1
+        if rep.ok:
+            return
+        self.health_failed += 1
+        if self.metrics:
+            self.metrics.write("health", tick=tick, issues=rep.issues)
+        if "nan_or_inf_state" in rep.issues:
+            state, generator = self.monitor.recover(runner.state, est,
+                                                    checkpoint_path=self.checkpoint_path)
+            runner.set_state_blocks(state)
+            if generator is not None:   # the checkpoint's stream
+                runner.set_generator(generator)
+            self.recoveries += 1
+
+    def close(self) -> None:
+        """Close the metrics log."""
+        if self.metrics:
+            self.metrics.close()
+
+
 def run_driver(
     driver,
     config: FastSLAMConfig,
@@ -716,17 +826,12 @@ def run_driver(
     to what the filter sees, one draw per active component tick; ground truth
     is unaffected.
 
-    The production hooks, all off by default, run after each tick's filter
-    step in this order: the health check (``health``), with a recovery from
-    ``checkpoint_path`` or a re-initialization when the state is no longer
-    finite; a ``tick`` record in the JSONL ``metrics_path`` (and a ``health``
-    record for each failed check); a viewer snapshot at ``serialize_path``
-    every ``serialize_every`` ticks (the global map of
-    :func:`~fastslam_tpu_torch.frontend.global_map.cluster_known_landmarks`);
-    a checkpoint of the blocks-layout state at ``checkpoint_path`` every
-    ``checkpoint_every`` ticks from tick ``checkpoint_every`` on.  The hooks
-    read the state and draw nothing, so they leave the estimates as they
-    are; with every hook off the loop adds no synchronization.
+    The production hooks (:class:`ProductionHooks`, built from
+    ``serialize_path``, ``serialize_every``, ``metrics_path``,
+    ``checkpoint_path``, ``checkpoint_every`` and ``health``), all off by
+    default, run after each tick's filter step.  They read the state and
+    draw nothing, so they leave the estimates as they are; with every hook
+    off the loop adds no synchronization.
 
     In production mode with ``fuse_online_tick`` (the default) every tick is
     :meth:`SLAMRunner.tick_fused`, on CUDA one replay of its captured graph;
@@ -737,8 +842,10 @@ def run_driver(
     runner = SLAMRunner(config, rng, device=device, graph=graph)
     history = RunHistory()
     odo_rng = np.random.default_rng(odometry_noise_seed)
-    monitor = HealthMonitor(config) if health else None
-    metrics = MetricsLog(metrics_path) if metrics_path else None
+    hooks = ProductionHooks(config, serialize_path=serialize_path,
+                            serialize_every=serialize_every, metrics_path=metrics_path,
+                            checkpoint_path=checkpoint_path,
+                            checkpoint_every=checkpoint_every, health=health)
 
     # the filter's world frame is the robot's start pose: ground truth maps
     # through the full SE(2) inverse of the start pose
@@ -752,8 +859,6 @@ def run_driver(
     spent = history.stage_seconds
     fused = runner._fused is not None
     spent.update({"tick": 0.0} if fused else {"icp_refine": 0.0, "tick": 0.0})
-    # each hook ends in a host copy or a file write
-    hook_time = profiling.PhaseTimer("fastslam.hook")
     while running and ticks < max_ticks:
         scan = driver.get_laser()
         points, valid = scan.to_points()
@@ -800,41 +905,13 @@ def run_driver(
         ev = evaluate_tick(gt, est)
         history.evaluations.append(ev)
         history.num_measurements.append(runner._last_num_measurements)
-
-        if monitor is not None:
-            with hook_time.phase("health"):
-                rep = monitor.check(runner.state, est)
-                if not rep.ok:
-                    if metrics:
-                        metrics.write("health", tick=ticks, issues=rep.issues)
-                    if "nan_or_inf_state" in rep.issues:
-                        state, generator = monitor.recover(
-                            runner.state, est, checkpoint_path=checkpoint_path)
-                        runner.set_state_blocks(state)
-                        if generator is not None:   # the checkpoint's stream
-                            runner.set_generator(generator)
-        if metrics:
-            with hook_time.phase("metrics"):
-                metrics.write("tick", tick=ticks, distance=ev.distance,
-                              num_measurements=runner._last_num_measurements)
-        if serialize_path and ticks % serialize_every == 0:
-            with hook_time.phase("serialize"):
-                cents, ok = cluster_known_landmarks(runner.state_blocks(), config)
-                cents, ok = cents.cpu().numpy(), ok.cpu().numpy()
-                serialize_tick(est, gt, runner.state.poses.cpu().numpy(),
-                               [tuple(map(float, c)) for c in cents[ok]],
-                               ev.to_dict(), path=serialize_path)
-        if checkpoint_path and ticks and ticks % checkpoint_every == 0:
-            with hook_time.phase("checkpoint"):
-                save_checkpoint(checkpoint_path, runner.state_blocks(), iteration=ticks,
-                                robot_pose=runner.robot, generator=runner._generator)
+        hooks.after_tick(runner, ticks, est, gt, ev)
 
         running = driver.step()
         ticks += 1
 
-    if metrics:
-        metrics.close()
-    spent.update(hook_time.totals)
+    hooks.close()
+    spent.update(hooks.seconds)
     if fused:
         history.graph_replays = runner._fused.replays
     if runner._adaptive_floors:

@@ -5,7 +5,8 @@ Counterpart of ``fastslam_tpu/utils/profiling.py``:
 * :class:`PhaseTimer`: the host loop's phase totals and, while a
   ``torch.profiler`` session is active, rows of nested host spans, one row
   per tick, each span also a named region of the trace;
-  :data:`TICK_TRACE` is the fused online tick's;
+  :data:`TICK_TRACE` is the fused online tick's, :data:`HOOK_TRACE` the
+  online loop's production hooks';
 * :func:`device_trace`: ``torch.profiler`` over the CPU and, where there is
   a card, CUDA activities, exported as a Chrome trace;
 * :func:`annotate`: a named region (``torch.profiler.record_function``)
@@ -51,7 +52,7 @@ class PhaseTimer:
     ``<prefix>.<name>``.
 
     :meth:`row` opens the row of one tick, where a profiler session is
-    active (read once, there), as the span ``tick``.  Each :meth:`span`
+    active (read once, there), as the span ``tick`` (or ``name``).  Each :meth:`span`
     inside it is a child of the innermost open span: the row keeps it as ``(name,
     parent, start_ns, end_ns)`` on ``time.perf_counter_ns``, and the trace
     shows it as the region ``<prefix>.<path>`` (``fastslam.tick.submit``).
@@ -82,18 +83,18 @@ class PhaseTimer:
         finally:
             self.totals[name] += time.perf_counter() - t0
 
-    def row(self, key):
-        """The row of one tick, keyed ``key`` and spanned as ``tick``, where a
+    def row(self, key, name: str = "tick"):
+        """The row of one tick, keyed ``key`` and spanned as ``name``, where a
         profiler session is active; else nothing."""
         if not profiling_active():
             return _NOTHING
-        return self._row_span(key)
+        return self._row_span(key, name)
 
     @contextlib.contextmanager
-    def _row_span(self, key):
+    def _row_span(self, key, name):
         row = self._row = {"key": key, "spans": [], "stages": {}, "counters": {}}
         try:
-            with self._span("tick"):
+            with self._span(name):
                 yield
         finally:
             self._row = None
@@ -147,6 +148,11 @@ class PhaseTimer:
 # (``app/runner.py:SLAMRunner.tick_fused``); one per process, so the rows of
 # a profiled window can be read after the loop and its runner are gone
 TICK_TRACE = PhaseTimer("fastslam")
+
+# the online loop's production hooks (``app/runner.py:ProductionHooks``): a
+# row ``hook`` per tick, each hook that ran a span ``fastslam.hook.<name>`` of
+# it, and the hooks' counters
+HOOK_TRACE = PhaseTimer("fastslam")
 
 
 class EventMarks:
