@@ -117,9 +117,14 @@ Phases, one line each (or more):
     every 10 ticks, a metrics JSONL, a checkpoint at tick 150, health): the
     same 300 estimates bit for bit, a parseable snapshot of at most 500 particles
     and at least one landmark, 300 tick records, the checkpoint back at
-    iteration 150 with full shapes and finite arrays, no
-    ``nan_or_inf_state``; ms per tick with and without hooks and the
-    seconds each hook took;
+    iteration 150 with full shapes and finite arrays, its five members
+    deflated on the card (``deflate_fixed``), no ``nan_or_inf_state``; ms
+    per tick with and without hooks and the seconds each hook took; then
+    each of the checkpoint's five members through ``deflate_fixed`` and
+    through ``deflate_fixed_ref`` on its CPU copy, stream and length, CRC
+    and row-match bytes equal byte for byte, the kernel's ms (CUDA events),
+    the plain version's and the bound (the member read and its stream
+    written);
 19. the reference API: ``api.FastSLAM2`` at P=100,000, L=64, production, 10
     ticks of ``bench.py``'s measurement set (finite poses, 10 launches of the
     per-tick update kernel), and ``api.ICP`` on a pair of the drive equal to
@@ -326,6 +331,10 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                            "fastslam_tpu/core/kernels.py:grid_staircase_indices"),
     "resample_gather": ("fastslam_tpu_torch/csrc/resample.cu",
                         "fastslam_tpu/core/kernels.py:resample_planes_state"),
+    # port-only: no Pallas kernel; it replaces the host zlib of the
+    # np.savez_compressed in the checkpoint writer
+    "deflate_fixed": ("fastslam_tpu_torch/csrc/deflate.cu",
+                      "fastslam_tpu/io/checkpoint.py:save_checkpoint"),
 }
 MOTION = ("fused_update_planes", "fused_update_planes_multi")
 FS2 = ("fused_fs2_planes", "fused_fs2_planes_multi")
@@ -353,6 +362,9 @@ ONLINE_LAUNCHES = {"fused_fs2_planes": 300, "icp_point_to_line": 299}
 # counted
 ONLINE_FUSED_LAUNCHES = {"fused_fs2_planes": 300, "icp_point_to_line": 300,
                          "resample_staircase": 300, "resample_gather": 300}
+# with the hooks, the one checkpoint's encoder: once per member of the blocks
+# state, each at least io/checkpoint.ENCODER_MIN_BYTES at P
+HOOKED_FUSED_LAUNCHES = {**ONLINE_FUSED_LAUNCHES, "deflate_fixed": 5}
 TRACE_ATE = 0.06     # the JdeRobot traces on the fused loop (EVAL.md:72, ~2x)
 SIN_COS_VALUES = 100_000_000
 FMA_RTOL = 1e-6      # fma_chain vs its plain version: rare double roundings
@@ -1605,10 +1617,10 @@ def online_run(log, cfg, **kw):
     return zeroed_run(lambda: run_driver(ReplayDriver(log), cfg, rng=0, device=DEVICE, **kw))
 
 
-def check_fused(tag, log, hist, launches, ate_bar):
+def check_fused(tag, log, hist, launches, ate_bar, expected=ONLINE_FUSED_LAUNCHES):
     """One graph replay per tick after the eager first one, the fused
-    path's launches, finite estimates under ``ate_bar``."""
-    check_icp_launches(tag, launches, ONLINE_FUSED_LAUNCHES)
+    path's launches (``expected``), finite estimates under ``ate_bar``."""
+    check_icp_launches(tag, launches, expected)
     if hist.graph_replays != len(log) - 1 or "icp_refine" in hist.stage_seconds:
         raise AssertionError(f"{tag}: {hist.graph_replays} graph replays, stages "
                              f"{sorted(hist.stage_seconds)}")
@@ -2279,8 +2291,36 @@ def phase17(gen, card):
     return errs, launches, times, bounds, onchip
 
 
+def phase18_deflate(state):
+    """Each member the encoder takes of the blocks ``state`` through
+    ``deflate_fixed`` and its plain version on a CPU copy, equal byte for
+    byte; per member ``(name, bytes, stream bytes, ms, plain ms, bound)``."""
+    import torch
+
+    from fastslam_tpu_torch.core import cuda_kernels
+    from fastslam_tpu_torch.io.checkpoint import encoder_members
+
+    rows = []
+    for name, t, row in encoder_members(state):
+        stream, info = cuda_kernels.deflate_fixed(t, row, 0)
+        host = t.cpu()
+        t0 = time.perf_counter()
+        want, want_info = cuda_kernels.deflate_fixed_ref(host, row, 0)
+        plain = (time.perf_counter() - t0) * 1e3
+        same = torch.equal(stream.cpu(), want)
+        if not (same and torch.equal(info.cpu(), want_info)):
+            raise AssertionError(f"deflate_fixed on {name} {tuple(t.shape)}: info "
+                                 f"{info.tolist()}, plain {want_info.tolist()}, streams "
+                                 f"{'equal' if same else 'differ'}")
+        n = (int(want_info[0]) + 7) // 8
+        rows.append((name, t.nbytes, n, time_ms(lambda: cuda_kernels.deflate_fixed(t, row, 0), 5),
+                     plain, bound_ms(t.nbytes + n, 0)[0]))
+    return rows
+
+
 def phase18(log, online_est, online_wall):
-    """The fused online loop of phase 12 with every production hook on."""
+    """The fused online loop of phase 12 with every production hook on, and
+    the checkpoint's encoder on the state it wrote."""
     import os
     import shutil
 
@@ -2302,7 +2342,7 @@ def phase18(log, online_est, online_wall):
             ReplayDriver(log), adaptive_config(), rng=0, device=DEVICE,
             serialize_path=snap, serialize_every=10, metrics_path=metrics,
             checkpoint_path=ckpt, checkpoint_every=150, health=True))
-        check_fused("hooked online loop", log, hist, launches, 0.05)
+        check_fused("hooked online loop", log, hist, launches, 0.05, HOOKED_FUSED_LAUNCHES)
         est = np.asarray(hist.est_poses)
         if not np.array_equal(est, online_est):
             raise AssertionError(f"hooked online loop: estimates differ from phase 12's "
@@ -2325,6 +2365,7 @@ def phase18(log, online_est, online_wall):
         if meta["iteration"] != 150 or got != shapes or not finite or meta["generator"] is None:
             raise AssertionError(f"checkpoint: iteration {meta['iteration']}, shapes {got}, "
                                  f"finite {finite}")
+        deflate = phase18_deflate(state)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     spent = hist.stage_seconds
@@ -2338,7 +2379,12 @@ def phase18(log, online_est, online_wall):
               + f" (30 snapshots, 1 checkpoint of {size_mb:.1f} MB); "
               f"{len(view['particles'])} particles and {len(view['landmarks'])} landmarks "
               f"in the last snapshot; health issues seen: {issues or 'none'}")
-    return launches
+    for name, nbytes, n, ms, plain, bound in deflate:
+        phase(18, f"deflate_fixed on the checkpoint's {name} ({nbytes:,} B, stream {n:,} B): "
+                  f"equal to deflate_fixed_ref byte for byte; {ms:.4f} ms (bound {bound:.4f}), "
+                  f"plain {plain:.1f} ms")
+    total = lambda i: sum(r[i] for r in deflate)
+    return launches, (total(3), total(4), None), (total(5), "bytes")
 
 
 def phase19(log):
@@ -3294,7 +3340,10 @@ def main() -> int:
     errs.update(probe_errs)
     times.update(probe_times)
     bounds.update(probe_bounds)
-    paths["hooked_online"] = phase18(log, online_est, online_wall)
+    # the encoder: the sums over the checkpoint's five members
+    paths["hooked_online"], times["deflate_fixed"], bounds["deflate_fixed"] = phase18(
+        log, online_est, online_wall)
+    errs["deflate_fixed"] = 0.0     # byte for byte, or phase 18 raised
     paths["api"] = phase19(log)
     paths["tracked_online"], paths["jderobot"] = phase20(log, card)
     paths["backend"], seg_rows = phase21(log, online_est, card)

@@ -715,10 +715,15 @@ class ProductionHooks:
     is active a tick's hooks are the row ``hook`` of
     :data:`~fastslam_tpu_torch.utils.profiling.HOOK_TRACE`, each hook its
     span ``fastslam.hook.<name>``, with the counters ``checkpoint_bytes`` (the
-    file a checkpoint wrote), ``snapshot_landmarks`` (the landmarks a
-    snapshot holds), ``health_failed``, ``recoveries``,
-    ``last_checkpoint_tick`` and ``last_snapshot_tick`` (-1 before the
-    first).  The same counts are attributes, kept always."""
+    file a checkpoint wrote), ``checkpoint_device_bytes`` (the state's raw
+    bytes the card deflated for it: ``io/checkpoint.py`` encodes its large
+    members on the card with ``cuda_kernels.deflate_fixed``; 0 on the CPU),
+    ``checkpoint_match_pct``
+    (the share of the encoded bytes that matches one particle back cover),
+    ``snapshot_landmarks`` (the landmarks a snapshot holds),
+    ``health_failed``, ``recoveries``, ``last_checkpoint_tick`` and
+    ``last_snapshot_tick`` (-1 before the first).  The same counts are
+    attributes, kept always."""
 
     def __init__(self, config: FastSLAMConfig, *, serialize_path: Optional[str] = None,
                  serialize_every: int = 1, metrics_path: Optional[str] = None,
@@ -732,7 +737,8 @@ class ProductionHooks:
         self.on = bool(health or metrics_path or serialize_path or checkpoint_path)
         self.seconds: dict = {}
         self.health_checks = self.health_failed = self.recoveries = 0
-        self.checkpoint_bytes = self.snapshot_landmarks = 0
+        self.checkpoint_bytes = self.snapshot_landmarks = self.checkpoint_device_bytes = 0
+        self.checkpoint_match_pct = 0.0
         self.last_checkpoint_tick = self.last_snapshot_tick = -1
 
     @contextlib.contextmanager
@@ -770,12 +776,16 @@ class ProductionHooks:
                 counters["snapshot_landmarks"] = self.snapshot_landmarks
             if self.checkpoint_path and tick and tick % self.checkpoint_every == 0:
                 with self._hook("checkpoint"):
-                    save_checkpoint(self.checkpoint_path, runner.state_blocks(),
-                                    iteration=tick, robot_pose=runner.robot,
-                                    generator=runner._generator)
+                    written = save_checkpoint(self.checkpoint_path, runner.state_blocks(),
+                                              iteration=tick, robot_pose=runner.robot,
+                                              generator=runner._generator)
                     self.checkpoint_bytes = os.path.getsize(self.checkpoint_path)
+                self.checkpoint_device_bytes = written.device_bytes
+                self.checkpoint_match_pct = written.match_pct
                 self.last_checkpoint_tick = tick
-                counters["checkpoint_bytes"] = self.checkpoint_bytes
+                counters.update(checkpoint_bytes=self.checkpoint_bytes,
+                                checkpoint_device_bytes=self.checkpoint_device_bytes,
+                                checkpoint_match_pct=self.checkpoint_match_pct)
             counters.update(health_failed=self.health_failed, recoveries=self.recoveries,
                             last_checkpoint_tick=self.last_checkpoint_tick,
                             last_snapshot_tick=self.last_snapshot_tick)

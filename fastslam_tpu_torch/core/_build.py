@@ -63,6 +63,7 @@ _SIGNATURES = {
     "segment_sum_launch": [_I] + [_P] * 5 + [_I] * 3 + [_P],
     "resample_staircase_launch": [_I] + [_P] * 6 + [_I, _P],
     "resample_gather_launch": [_I] + [_P] * 4 + [_I] + [_P] * 2 + [_I, _P],
+    "deflate_fixed_launch": [_I, _P, _LL, _I, _I, _I, _P, _P, _LL, _P, _P],
 }
 
 

@@ -36,10 +36,10 @@ def test_library_key_follows_every_csrc_file(tmp_path):
         assert _build.source_digest(csrc) == base
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.source_digest(csrc) != base
-    assert [p.name for p in _build.sources(csrc)] == ["fused_fs2.cu", "fused_update.cu",
-                                                      "icp_nn.cu", "probes.cu",
-                                                      "resample.cu", "ring_halo.cu",
-                                                      "segment_sum.cu"]
+    assert [p.name for p in _build.sources(csrc)] == ["deflate.cu", "fused_fs2.cu",
+                                                      "fused_update.cu", "icp_nn.cu",
+                                                      "probes.cu", "resample.cu",
+                                                      "ring_halo.cu", "segment_sum.cu"]
     assert _build.source_digest(_build.CSRC) in _build.library_path().name
 
 
@@ -106,6 +106,7 @@ def wrapper_calls(cfg):
         "resample_gather": lambda: cuda_kernels.resample_gather(
             [meta(L, P) for _ in range(5)], [meta(P, 3), meta(P, dtype=torch.int32)],
             meta(P, dtype=torch.int64), meta(dtype=torch.bool)),
+        "deflate_fixed": lambda: cuda_kernels.deflate_fixed(meta(P, L, 4), 16 * L, 0xFFFFFFFF),
         "segment_sum": lambda: cuda_kernels.segment_sum(
             meta(C, P), cuda_kernels.Segments(meta(P, dtype=torch.int32),
                                               meta(L + 1, dtype=torch.int32))),

@@ -1615,3 +1615,104 @@ def test_bench_chunked_graph(device, proposal, row):
     assert np.isfinite(ups) and ups > 0
     assert ups == pytest.approx(P * M / step_s)
     assert cuda_kernels.LAUNCHES[row] - before == 5 * (2 + 3)
+
+
+# ------------------------------------------------------- the checkpoint encoder
+
+def deflate_case(kind, device):
+    """``(tensor, row_bytes)`` of a crafted member on the card."""
+    g = torch.Generator().manual_seed(len(kind))
+    if kind == "zeros":
+        return torch.zeros(300, 64, 4, device=device), 1024
+    if kind == "row_repeats":
+        a = torch.zeros(301, 64, 2)
+        a[:, :9] = torch.randn(301, 9, 2, generator=g)
+        a[1::2] = a[0:300:2]
+        return a.to(device), 512
+    if kind == "high_bytes":
+        return torch.randint(144, 256, (300, 512), generator=g, dtype=torch.uint8).to(device), 512
+    if kind == "row_12":
+        a = torch.randn(1001, 3, generator=g)
+        a[5::4] = a[4:1000:4][:len(a[5::4])]
+        return a.to(device), 12
+    if kind == "row_4":
+        return torch.randint(0, 3, (5001,), generator=g, dtype=torch.int32).to(device), 4
+    if kind == "planes":
+        a = torch.zeros(16, 3001)
+        a[:5, ::7] = torch.randn(5, 429, generator=g)
+        return a.to(device), 0
+    assert kind == "long_runs"
+    return torch.full((5000,), 0x41414141, dtype=torch.int32, device=device), 0
+
+
+@pytest.mark.parametrize("kind", ["zeros", "row_repeats", "high_bytes", "row_12", "row_4",
+                                  "planes", "long_runs"])
+def test_deflate_kernel_matches_plain(device, kind):
+    import zlib
+
+    data, row = deflate_case(kind, device)
+    before = cuda_kernels.LAUNCHES["deflate_fixed"]
+    stream, info = cuda_kernels.deflate_fixed(data, row, 0x9E3779B9)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["deflate_fixed"] == before + 1
+    want, want_info = cuda_kernels.deflate_fixed_ref(data.cpu(), row, 0x9E3779B9)
+    assert torch.equal(stream.cpu(), want) and torch.equal(info.cpu(), want_info)
+    raw = data.cpu().numpy().tobytes()
+    n = (int(info[0]) + 7) // 8
+    assert zlib.decompress(stream[:n].cpu().numpy().tobytes(), wbits=-15) == raw
+    assert int(info[1]) == zlib.crc32(raw, 0x9E3779B9)
+
+
+def test_deflate_refuses_what_it_cannot_take(device):
+    before = cuda_kernels.LAUNCHES["deflate_fixed"]
+    base = torch.zeros(4096, dtype=torch.uint8, device=device)
+    for bad in (torch.zeros(64, 64, device=device).t(), base[:6], base[1:65]):
+        with pytest.raises(ValueError):
+            cuda_kernels.deflate_fixed(bad, 0)
+    assert cuda_kernels.LAUNCHES["deflate_fixed"] == before
+
+
+def test_deflate_kernel_matches_plain_on_a_driven_state(device, tmp_path):
+    """At P = 100,000, L = 64: the hooked loop's checkpoint after 400 ticks
+    of fs2 + ICP with wheel slip launches the encoder once per large member;
+    on that state each member's stream equals the plain version's, and the
+    checkpoint written from the card reads back as the one written from its
+    CPU copy (zlib, nothing encoded on the card) array for array."""
+    from fastslam_tpu_torch.io import checkpoint
+    from fastslam_tpu_torch.probes import checkpoint_deflate
+
+    state, launches = checkpoint_deflate.driven_checkpoint(str(tmp_path / "driven.npz"),
+                                                           ticks=400, device=device)
+    members = checkpoint.encoder_members(state)
+    assert [m[0] for m in members] == ["poses", "log_weights", "lm_count", "lm_mean", "lm_cov"]
+    assert launches == len(members)
+    for name, t, row in members:
+        assert checkpoint_deflate.same_encoding(t, row), name
+    on_card = checkpoint.save_checkpoint(str(tmp_path / "card.npz"), state, iteration=400)
+    host = state.replace(**{k: v.cpu() for k, v in state.__dict__.items()})
+    on_cpu = checkpoint.save_checkpoint(str(tmp_path / "cpu.npz"), host, iteration=400)
+    assert on_card.device_bytes == sum(t.nbytes for _, t, _ in members) > 150e6
+    assert on_card.row_match_bytes > 0 and on_cpu == (0, 0)
+    with np.load(tmp_path / "card.npz") as a, np.load(tmp_path / "cpu.npz") as b:
+        assert a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
+
+
+def test_hooks_count_what_the_card_encoded(device, tmp_path):
+    """The production hooks' counters on the card: every large member of
+    the blocks state deflated there, and a fresh state's maps (zeros) all
+    but their first row matches one particle back."""
+    from fastslam_tpu_torch.app.runner import ProductionHooks, SLAMRunner
+    from fastslam_tpu_torch.eval.metrics import evaluate_tick
+    from fastslam_tpu_torch.io import checkpoint
+
+    cfg = FastSLAMConfig(num_particles=300, max_landmarks=64, parity_mode=False)
+    hooks = ProductionHooks(cfg, checkpoint_path=str(tmp_path / "ck.npz"), checkpoint_every=2)
+    runner = SLAMRunner(cfg, rng=0, device=device)
+    est = gt = np.zeros(3)
+    before = cuda_kernels.LAUNCHES["deflate_fixed"]
+    for t in range(3):
+        hooks.after_tick(runner, t, est, gt, evaluate_tick(gt, est))
+    large = checkpoint.encoder_members(runner.state_blocks())
+    assert cuda_kernels.LAUNCHES["deflate_fixed"] - before == len(large) > 0
+    assert hooks.checkpoint_device_bytes == sum(t.nbytes for _, t, _ in large)
+    assert hooks.checkpoint_match_pct > 90.0
