@@ -180,7 +180,7 @@ Phases, one line each (or more):
     chunked step), the host ms of it in collectives and the bytes received
     through the group.  Then the ring resampler across the two processes:
     on healthy weights (the halo path) and collapsed ones (the fallback),
-    with the counters set to 0 just before, it and the halo resampler equal
+    with their launches counted, it and the halo resampler equal
     ``resample_state`` bit for bit, with one launch of the exchange
     kernel's cross-process form per process per call; 20 consecutive
     exchanges on new blocks each equal the plain exchange (``ppermute``
@@ -208,7 +208,7 @@ Phases, one line each (or more):
     ``run`` at P=100,000, L=64 (four gloo processes on the card): the ring
     resampler against ``resample_state`` on both weight profiles, bit for
     bit, one launch of the cross-process kernel per process per call
-    (counters set to 0 just before); 20 exchanges against the plain
+    (launches counted over the calls); 20 exchanges against the plain
     exchange bit for bit, and 20 back to back; ms per exchange and per
     resample of the kernel and of gloo in turns, beside phase 23's; the
     waits, as in phase 23;
@@ -271,8 +271,8 @@ Phases, one line each (or more):
     finite and positive, every window's graph held to its eager run bit
     for bit (the command raises otherwise), and launches of rows 1, 2 and 4
     (the e2e loop's per-tick motion kernel, the chunked motion and fs2
-    kernels).  Each of phases 30–35 runs with the launch counters set to 0
-    just before (the ``step``, ``compare``, ``e2e_attribution``,
+    kernels).  Each of phases 30–35 counts its own launches (the
+    ``step``, ``compare``, ``e2e_attribution``,
     ``collective_bytes``, ``scaling`` and ``bench`` paths of the kernels
     line).
 
@@ -668,8 +668,8 @@ def phase3(gen, ms):
 
 
 def replay_main_path(n, log, cfg, kernels_run, ate_bar):
-    """``replay_chunked`` twice with the counters zeroed just before the
-    first run; the first run must launch only ``kernels_run`` (18 chunked,
+    """``replay_chunked`` twice, the launches of the first run counted;
+    the first run must launch only ``kernels_run`` (18 chunked,
     12 per-tick), reach ATE < ``ate_bar``, and the second must repeat its
     estimates bit for bit.  Returns (launches, ATE)."""
     import numpy as np
@@ -678,13 +678,12 @@ def replay_main_path(n, log, cfg, kernels_run, ate_bar):
     from fastslam_tpu_torch.app.runner import replay_chunked
     from fastslam_tpu_torch.core import cuda_kernels
 
-    for k in cuda_kernels.LAUNCHES:
-        cuda_kernels.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    hist = replay_chunked(log, cfg, chunk_size=C, rng=0, device=DEVICE)
+    with cuda_kernels.counted() as counted:
+        hist = replay_chunked(log, cfg, chunk_size=C, rng=0, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches = dict.fromkeys(cuda_kernels.LAUNCHES, 0) | counted
     tick, chunked = kernels_run
     expected = {k: 0 for k in launches} | {chunked: 18, tick: 12}
     if launches != expected:
@@ -1051,14 +1050,14 @@ def fused_icp_bound(args, iters):
 def at_icp_geometry(geometry, run):
     """``run()`` with the fused ICP kernel launched at ``geometry`` (threads
     per pair, lanes per point) in place of the wrapper's own."""
-    from fastslam_tpu_torch.core import cuda_kernels
+    from fastslam_tpu_torch.core.cuda_kernels import icp
 
-    saved = cuda_kernels.ICP_THREADS, cuda_kernels.ICP_LANES
-    cuda_kernels.ICP_THREADS, cuda_kernels.ICP_LANES = geometry
+    saved = icp.ICP_THREADS, icp.ICP_LANES
+    icp.ICP_THREADS, icp.ICP_LANES = geometry
     try:
         return run()
     finally:
-        cuda_kernels.ICP_THREADS, cuda_kernels.ICP_LANES = saved
+        icp.ICP_THREADS, icp.ICP_LANES = saved
 
 
 def same_outputs(tag, got, want):
@@ -1247,14 +1246,14 @@ def fused_icp_times(batch):
 def at_geometry(geometry, run):
     """``run()`` with the fs2 kernels launched at ``geometry`` (tile, lanes)
     in place of the wrappers' own."""
-    from fastslam_tpu_torch.core import cuda_kernels
+    from fastslam_tpu_torch.core.cuda_kernels import filter
 
-    saved = cuda_kernels.FS2_TILE, cuda_kernels.FS2_LANES
-    cuda_kernels.FS2_TILE, cuda_kernels.FS2_LANES = geometry
+    saved = filter.FS2_TILE, filter.FS2_LANES
+    filter.FS2_TILE, filter.FS2_LANES = geometry
     try:
         return run()
     finally:
-        cuda_kernels.FS2_TILE, cuda_kernels.FS2_LANES = saved
+        filter.FS2_TILE, filter.FS2_LANES = saved
 
 
 def fs2_geometry_sweep(state, fs2_tick, fs2_chunk):
@@ -1290,14 +1289,14 @@ def fs2_geometry_sweep(state, fs2_tick, fs2_chunk):
 def at_motion_geometry(geometry, run):
     """``run()`` with the motion kernels launched at ``geometry`` (tile,
     lanes) in place of the wrappers' own."""
-    from fastslam_tpu_torch.core import cuda_kernels
+    from fastslam_tpu_torch.core.cuda_kernels import filter
 
-    saved = cuda_kernels.MOTION_TILE, cuda_kernels.MOTION_LANES
-    cuda_kernels.MOTION_TILE, cuda_kernels.MOTION_LANES = geometry
+    saved = filter.MOTION_TILE, filter.MOTION_LANES
+    filter.MOTION_TILE, filter.MOTION_LANES = geometry
     try:
         return run()
     finally:
-        cuda_kernels.MOTION_TILE, cuda_kernels.MOTION_LANES = saved
+        filter.MOTION_TILE, filter.MOTION_LANES = saved
 
 
 def motion_geometry_sweep(state, tick, chunk):
@@ -1487,19 +1486,18 @@ def phase10_fused(batch, random_clouds, gen):
     return worst
 
 
-def zeroed_run(run):
-    """``run()`` with every launch counter set to 0 just before; returns its
-    result, the counters just after, and the wall time."""
+def counted_run(run):
+    """``run()`` with its launches counted; returns its result, the
+    launches of every kernel, and the wall time."""
     import torch
 
     from fastslam_tpu_torch.core import cuda_kernels
 
-    for k in cuda_kernels.LAUNCHES:
-        cuda_kernels.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    out = run()
+    with cuda_kernels.counted() as launches:
+        out = run()
     torch.cuda.synchronize()
-    return out, dict(cuda_kernels.LAUNCHES), time.perf_counter() - t0
+    return out, dict.fromkeys(cuda_kernels.LAUNCHES, 0) | launches, time.perf_counter() - t0
 
 
 def check_icp_launches(tag, launches, expected):
@@ -1537,7 +1535,7 @@ def phase11(log, fs2_ate):
     cfg = adaptive_config()
     replay = lambda slip=(0.0, 0.0): replay_chunked(
         log, cfg, chunk_size=ADAPTIVE_C, rng=0, device=DEVICE, odometry_noise=slip)
-    hist, launches, wall = zeroed_run(replay)
+    hist, launches, wall = counted_run(replay)
     check_icp_launches("adaptive replay", launches, ADAPTIVE_LAUNCHES)
     est, ate = check_estimates("adaptive replay", hist, 0.05)
     fixed = replay_chunked(log, config(proposal_mode="fastslam2"), chunk_size=ADAPTIVE_C,
@@ -1552,7 +1550,7 @@ def phase11(log, fs2_ate):
         raise AssertionError(f"adaptive replay: a second run differs by "
                              f"{np.abs(again - est).max():.3e}")
     phase(11, "a second run gives the same 300 estimates bit for bit")
-    slipped, slip_launches, slip_wall = zeroed_run(lambda: replay(SLIP))
+    slipped, slip_launches, slip_wall = counted_run(lambda: replay(SLIP))
     check_icp_launches("adaptive replay with slip", slip_launches, ADAPTIVE_LAUNCHES)
     _, slip_ate = check_estimates("adaptive replay with slip", slipped, 0.10)
     phase(11, f"with wheel slip {SLIP}: ATE {slip_ate:.4f} m, wall {slip_wall:.2f} s, "
@@ -1610,11 +1608,11 @@ def phase11(log, fs2_ate):
 
 
 def online_run(log, cfg, **kw):
-    """``run_driver`` over ``log`` on the card, counters zeroed just before."""
+    """``run_driver`` over ``log`` on the card, its launches counted."""
     from fastslam_tpu_torch.app.runner import run_driver
     from fastslam_tpu_torch.drivers.replay import ReplayDriver
 
-    return zeroed_run(lambda: run_driver(ReplayDriver(log), cfg, rng=0, device=DEVICE, **kw))
+    return counted_run(lambda: run_driver(ReplayDriver(log), cfg, rng=0, device=DEVICE, **kw))
 
 
 def check_fused(tag, log, hist, launches, ate_bar, expected=ONLINE_FUSED_LAUNCHES):
@@ -1854,14 +1852,14 @@ def phase21_config5(card):
     def run(shards):
         marks = EventMarks(DEVICE)
         torch.cuda.reset_peak_memory_stats()
-        out, launches, wall = zeroed_run(lambda: distributed.optimize_sharded(
+        out, launches, wall = counted_run(lambda: distributed.optimize_sharded(
             g, make_map_mesh([DEVICE] * shards), num_iters=BACKEND_ITERS,
             damping=BACKEND_DAMPING, marks=marks))
         want_launches(launches, shards)
         return out, launches, wall, marks.stage_ms(), torch.cuda.max_memory_allocated()
 
     state, marks = {}, EventMarks(DEVICE)
-    out, launches, _ = zeroed_run(lambda: backend_1m.run(
+    out, launches, _ = counted_run(lambda: backend_1m.run(
         CONFIG5_LANDMARKS, k=CONFIG5_KEYFRAMES, iters=BACKEND_ITERS, shards=SHARDS,
         device=DEVICE, marks=marks, state=state))
     want_launches(launches, SHARDS)
@@ -1937,7 +1935,7 @@ def phase21_smooth(log, est):
     for tracking in (False, True):
         runs = []
         for _ in range(2):
-            out, launches, wall = zeroed_run(lambda: smooth_trajectory(
+            out, launches, wall = counted_run(lambda: smooth_trajectory(
                 log, est, FastSLAMConfig(), use_tracking=tracking, device=DEVICE))
             runs.append((out, launches, wall))
         (poses, ticks, info), launches, wall = runs[0]
@@ -1990,7 +1988,7 @@ def phase21_merge():
 
     args, rot = merge_maps()
     want_al, want_m, _ = merge_sessions(*args)
-    (al, m, _), launches, wall = zeroed_run(
+    (al, m, _), launches, wall = counted_run(
         lambda: merge_sessions(*(a.to(DEVICE) for a in args)))
     err = max(float((al.rotation.cpu() - want_al.rotation).abs().max()),
               float((al.translation.cpu() - want_al.translation).abs().max()))
@@ -2094,7 +2092,7 @@ def phase15():
     from fastslam_tpu_torch.parallel import dryrun
 
     cfg = sharded_config()
-    results, launches, wall = zeroed_run(lambda: dryrun.dryrun_multichip(
+    results, launches, wall = counted_run(lambda: dryrun.dryrun_multichip(
         SHARDS, DEVICE, config=cfg, measurements=MEASUREMENTS, chunk=C, ticks=3))
     expected = {k: 0 for k in launches}
     for layout, _, kernel in dryrun.MODES.values():
@@ -2225,7 +2223,7 @@ def phase17(gen, card):
 
     clocks = [sm_clock_mhz()]
     k_copy, k_vpu = 20, 10
-    runs, launches, wall = zeroed_run(lambda: (
+    runs, launches, wall = counted_run(lambda: (
         hbm_floor.run(P, L, k_copy, DEVICE),
         vpu_roofline.run(P, L, PROBE_PASSES, k_vpu, PROBE_TILE, DEVICE)))
     clocks.append(sm_clock_mhz())
@@ -2338,7 +2336,7 @@ def phase18(log, online_est, online_wall):
     snap, metrics, ckpt = (os.path.join(out_dir, f)
                            for f in ("fast_slam.json", "metrics.jsonl", "ck.npz"))
     try:
-        hist, launches, wall = zeroed_run(lambda: run_driver(
+        hist, launches, wall = counted_run(lambda: run_driver(
             ReplayDriver(log), adaptive_config(), rng=0, device=DEVICE,
             serialize_path=snap, serialize_every=10, metrics_path=metrics,
             checkpoint_path=ckpt, checkpoint_every=150, health=True))
@@ -2409,7 +2407,7 @@ def phase19(log):
         tick_s = (time.perf_counter() - t0) / 10   # each iterate ends in a host copy
         return poses, api.ICP.get_transformation(src, tgt, device=DEVICE), tick_s
 
-    (poses, (rot, trans), tick_s), launches, _ = zeroed_run(run)
+    (poses, (rot, trans), tick_s), launches, _ = counted_run(run)
     want = {k: 0 for k in launches} | {"fused_update_planes": 10, ICP: launches[ICP]}
     if launches != want or not launches[ICP]:
         raise AssertionError(f"api launches {launches}, expected {want} and ICP > 0")
@@ -2490,7 +2488,7 @@ def phase22():
     mesh = make_mesh(cfg, [DEVICE] * (rows * maps), map_parallelism=maps)
     if mesh.shape != {"particles": rows, "map": maps}:
         raise AssertionError(f"mesh shape {mesh.shape}")
-    results, launches, wall = zeroed_run(lambda: dryrun.run_steps(
+    results, launches, wall = counted_run(lambda: dryrun.run_steps(
         cfg, None, DEVICE, ms, ticks=3, modes=BLOCKS_MODES, mesh=mesh))
     expected = {k: 0 for k in launches} | {"fused_update_planes": rows * 3 * len(BLOCKS_MODES)}
     if launches != expected:
@@ -2638,10 +2636,10 @@ def mp_checkpoint(results, mesh, outdir):
 
 def mp_worker(rank: int, port: int, outdir: str) -> int:
     """One of phase 23's processes: gloo on the card, 2 shards of the
-    4-shard mesh; the main path's modes with the counters zeroed just before,
+    4-shard mesh; the main path's modes with their launches counted,
     their estimates and the digests of their gathered states, the tick
     times, phase 24's checkpoint, then both resamplers across the processes
-    (counters zeroed just before), the exchanges against the plain one and
+    (their launches counted), the exchanges against the plain one and
     their times."""
     import os
 
@@ -2662,7 +2660,7 @@ def mp_worker(rank: int, port: int, outdir: str) -> int:
     cfg = sharded_config()
     ms = pad_measurements(cfg, MEASUREMENTS, DEVICE)
     mesh = make_mesh(cfg, [DEVICE] * MP_SHARDS)
-    results, launches, wall = zeroed_run(lambda: dryrun.run_steps(
+    results, launches, wall = counted_run(lambda: dryrun.run_steps(
         cfg, None, DEVICE, ms, chunk=C, ticks=3, modes=MP_MODES, mesh=mesh))
     out = {"info": info, "backend": dist.get_backend(), "launches": launches, "wall": wall,
            "mesh": (mesh.process_index, mesh.num_processes, mesh.num_shards),
@@ -2672,7 +2670,7 @@ def mp_worker(rank: int, port: int, outdir: str) -> int:
     out["times"] = mp_tick_times(cfg, mesh, ms)
     out["checkpoint"] = mp_checkpoint(results, mesh, outdir)
     # both resamplers across the processes, on the halo path and the fallback
-    out["resamplers"], out["ring_launches"], _ = zeroed_run(lambda: {
+    out["resamplers"], out["ring_launches"], _ = counted_run(lambda: {
         profile: dryrun.check_resamplers(cfg, None, DEVICE, profile, 0.0042, seed=14, mesh=mesh)
         for profile in ("healthy", "collapsed")})
     device = torch.device(DEVICE, torch.cuda.current_device())
@@ -2834,7 +2832,7 @@ def check_ring_workers(workers):
 
 def ring_waits(waits):
     """One process's waits of the cross-process exchange, as a phase line
-    reads them (``core/cuda_kernels.py:peer_ring_stats``)."""
+    reads them (``core/cuda_kernels/ring.py:peer_ring_stats``)."""
     per_call = lambda k: waits[k] / max(waits["calls"], 1)
     return (f"wait (a) found its words already set in {waits['entered_met']} of "
             f"{waits['calls']} calls, longest {waits['entered_max_ms']:.4f} ms; device ms per "
@@ -2916,7 +2914,7 @@ def phase25(card):
                  for _ in range(2)]
         return table, gt, again
 
-    (table, gt, again), launches, wall = zeroed_run(run)
+    (table, gt, again), launches, wall = counted_run(run)
     rows = {name: v[0][0] for name, v in table.rows.items()}
     if len(rows) != 13 or not all(np.isfinite(v) for v in rows.values()):
         raise AssertionError(f"scale section at seed 3: {rows}")
@@ -3030,7 +3028,7 @@ def phase28(card):
         again = diagnose_slip.run_trace(corridor, 0, device=DEVICE, oracle=False)
         return online, trace, again
 
-    (online, trace, again), launches, _ = zeroed_run(run)
+    (online, trace, again), launches, _ = counted_run(run)
     finite_record("diagnose_slip online", online[0])
     if online[0] != online[1]:
         raise AssertionError("diagnose_slip online: a second run differs")
@@ -3101,7 +3099,7 @@ def phase30():
             out.append(rec)
         return out
 
-    recs, launches, wall = zeroed_run(run)
+    recs, launches, wall = counted_run(run)
     for rec in recs:
         if not rec["graph"] or rec["draws"] != "eager_static":
             raise AssertionError(f"probes.step {rec['path']}: not timed as a graph ({rec})")
@@ -3123,7 +3121,7 @@ def phase31():
     rows 1-4 against their plain versions, every pair 0 apart."""
     from fastslam_tpu_torch.probes import compare
 
-    rec, launches, wall = zeroed_run(lambda: compare.run(DEVICE, plain_steps=1))
+    rec, launches, wall = counted_run(lambda: compare.run(DEVICE, plain_steps=1))
     for variant, r in rec["blocks_step"].items():
         phase(31, f"blocks step, {variant}: {r['step_ms']:.4f} ms per step, "
                   f"{r['updates_per_s']:,} updates/s, pose {r['pose']}, lm_count[0] "
@@ -3157,7 +3155,7 @@ def phase32():
 
     from fastslam_tpu_torch.probes import e2e_attribution
 
-    rec, launches, wall = zeroed_run(lambda: e2e_attribution.run(DEVICE, out_path=None))
+    rec, launches, wall = counted_run(lambda: e2e_attribution.run(DEVICE, out_path=None))
     tick = rec["fused_tick"]
     numbers = [*rec["e2e_ms_per_tick_by_k"].values(), rec["per_tick_ms_asymptotic"],
                rec["frontend_ms_per_tick"], rec["filter_ms_per_tick"], tick["wall_ms_median"],
@@ -3182,7 +3180,7 @@ def phase33():
     from fastslam_tpu_torch.probes import collective_bytes
 
     shards, per = 8, 8192
-    rec, launches, wall = zeroed_run(lambda: collective_bytes.run(DEVICE, shards, per, L, M))
+    rec, launches, wall = counted_run(lambda: collective_bytes.run(DEVICE, shards, per, L, M))
     want = shards * per * (3 + 1 + 6 * L + 1) * 4
     got = rec["gspmd_resample"]["whole_state_bytes"]
     if got != want:
@@ -3205,7 +3203,7 @@ def phase34():
     """``probes.scaling``: both sharded steps at 1-8 shards of the card."""
     from fastslam_tpu_torch.probes import scaling
 
-    rec, launches, wall = zeroed_run(lambda: scaling.run(DEVICE, print_rows=False))
+    rec, launches, wall = counted_run(lambda: scaling.run(DEVICE, print_rows=False))
     for r in rec["scaling"] + rec["scaling_chunked"]:
         phase(34, f"{r['step']} S={r['devices']} P={r['particles']}: {r['step_ms']:.4f} ms per "
                   f"tick, {r['frames_per_s']} frames/s, efficiency "
@@ -3233,7 +3231,7 @@ def phase35():
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        _, launches, wall = zeroed_run(lambda: bench.main([]))
+        _, launches, wall = counted_run(lambda: bench.main([]))
     lines = out.getvalue().strip().splitlines()
     if len(lines) != 1:
         raise AssertionError(f"bench printed {len(lines)} lines: {lines}")

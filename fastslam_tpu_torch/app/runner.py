@@ -455,9 +455,9 @@ class _FusedTick:
     :class:`torch.cuda.CUDAGraph`; every later tick is one replay.  The draws
     are taken eagerly from the runner's generator before each tick and
     copied into the static draw tensors, so a replay takes exactly the draws
-    of the eager tick.  Kernel launches are counted per replay: the capture
-    records the wrappers' counts and takes them back (it launches nothing),
-    and each replay adds them.  On the CPU, or with ``graph=False``, the
+    of the eager tick.  Kernel launches are counted per replay
+    (``cuda_kernels.captured``, ``cuda_kernels.replay``: each of the two
+    graphs keeps its own tally).  On the CPU, or with ``graph=False``, the
     body runs eagerly every tick.  A capture that fails raises; nothing
     falls back to the eager or the split path.
 
@@ -485,7 +485,6 @@ class _FusedTick:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._graphs: dict = {}
         self.replays = 0
-        self._tally: dict = {}
         self._inp = None
         self._ticks = 0
         self._icp = self.config.use_icp_proposal
@@ -640,11 +639,9 @@ class _FusedTick:
         with trace.span("submit"):
             self._fill(points, valid, scalars)
             if self.graph is not None:
-                graph, out = self._graphs[traced]
-                graph.replay()
+                graph, out, tally = self._graphs[traced]
+                cuda_kernels.replay(graph, tally)
                 self.replays += 1
-                for name, count in self._tally.items():
-                    cuda_kernels.LAUNCHES[name] += count
             else:
                 out = self._body(self._marks if traced else None)
                 if self.graph_enabled:
@@ -672,27 +669,21 @@ class _FusedTick:
         a collection during a capture can free an unreachable CUDA graph,
         and a graph's teardown while a stream captures invalidates the
         capture."""
-        before = dict(cuda_kernels.LAUNCHES)
         collecting = gc.isenabled()
         gc.disable()
         try:
             for traced in (False, True):
                 graph = torch.cuda.CUDAGraph()
                 pool = self.graph.pool() if traced else None
-                with torch.cuda.device(self.runner.device), torch.cuda.graph(graph, pool=pool):
-                    self._graphs[traced] = (graph, self._body(self._marks if traced else None))
+                with torch.cuda.device(self.runner.device), cuda_kernels.captured() as tally, \
+                        torch.cuda.graph(graph, pool=pool):
+                    out = self._body(self._marks if traced else None)
+                self._graphs[traced] = (graph, out, tally)
                 if not traced:
                     self.graph = graph
         finally:
             if collecting:
                 gc.enable()
-        # the captures launched nothing: take their counts back; a replay
-        # adds one capture's
-        spent = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before
-                 if cuda_kernels.LAUNCHES[k] != before[k]}
-        for name, count in spent.items():
-            cuda_kernels.LAUNCHES[name] -= count
-        self._tally = {k: count // 2 for k, count in spent.items()}
 
 
 class ProductionHooks:

@@ -21,7 +21,7 @@ every ``_CHECK_EVERY`` iterations (each check is a device-to-host sync), as
 ``proposal/icp.py`` does; its nearest-neighbour searches are
 ``proposal/icp.py:nearest_neighbors``, one launch of the ICP search kernel
 each on the card.  The merge's scatter-mean is a segment sum
-(``core/cuda_kernels.py:segment_sum``), the same on every run, and its
+(``core/cuda_kernels/segment_sum.py:segment_sum``), the same on every run, and its
 dropping scatter writes into a spare row that is sliced off.
 """
 

@@ -25,7 +25,7 @@ and their factors shard over a map mesh (``backend/distributed.py``).
 What differs from the JAX package:
 
 * Every float scatter-add of the reference (``.at[idx].add``) is a segment
-  sum through a CSR layout (``core/cuda_kernels.py:segment_sum``, one launch
+  sum through a CSR layout (``core/cuda_kernels/segment_sum.py:segment_sum``, one launch
   of the hand-written kernel on the card, its plain version on the CPU),
   which adds in one fixed order: a float ``index_add_`` on the card adds in
   the order its atomics land, and the backend's runs repeat bit for bit.

@@ -110,7 +110,7 @@ def time_window(loop: step_probe.Loop, device, *, reps: int, budget_s: float) ->
 
         def run():
             step_probe.fill_draws(loop, gen)
-            step_probe.replay(graph, tally)
+            cuda_kernels.replay(graph, tally)
             return g_out
     else:
         state = ref_state
@@ -231,43 +231,42 @@ def run(device="cuda", *, num_particles: int = PARTICLES,
     from fastslam_tpu_torch.probes import device_fields
 
     device = check_device(device)
-    before = dict(cuda_kernels.LAUNCHES)
     geometry = dict(num_particles=num_particles, num_landmarks=num_landmarks,
                     num_measurements=num_measurements, device=device)
 
     def chunked(proposal, reps, budget_s):
         return bench_chunked(num_steps, chunk, proposal, reps, budget_s, **geometry)
 
-    # three spread windows for the headline, two for fs2 (bench.py:291-349)
-    windows = []
-    ups, step_s = chunked("motion", 24, 150.0)
-    windows.append(round(step_s, 6))
-    ups2, step_s2 = chunked("motion", 12, 75.0)
-    windows.append(round(step_s2, 6))
-    if ups2 > ups:
-        ups, step_s = ups2, step_s2
-    fs2_windows = []
-    fs2_ups, fs2_step_s = chunked("fastslam2", 12, 90.0)
-    fs2_windows.append(round(fs2_step_s, 6))
-    e2e_fps = bench_e2e(e2e_steps, 8, 45.0, num_particles=num_particles, device=device)
-    base_meas = bench_oracle_baseline(num_particles=oracle_particles)
-    base_ups = ORACLE_BASELINE_UPDATES_PER_S
-    # a live measurement outside x0.5-x2 of the pin means another host
-    # class: the ratio would be against the wrong machine (bench.py:327-339)
-    baseline_pin_stale = not (base_ups / 2 <= base_meas <= base_ups * 2)
-    if baseline_pin_stale:
-        print(f"WARNING: measured oracle baseline {base_meas:.0f} updates/s deviates >2x "
-              f"from the pinned {base_ups}: host class may have changed; re-record "
-              "ORACLE_BASELINE_UPDATES_PER_S (--pin-oracle)", file=sys.stderr)
-    fs2b_ups, fs2b_step_s = chunked("fastslam2", 10, 60.0)
-    fs2_windows.append(round(fs2b_step_s, 6))
-    if fs2b_ups > fs2_ups:
-        fs2_ups, fs2_step_s = fs2b_ups, fs2b_step_s
-    ups3, step_s3 = chunked("motion", 12, 75.0)
-    windows.append(round(step_s3, 6))
-    if ups3 > ups:
-        ups, step_s = ups3, step_s3
-    launches = {k: n - before[k] for k, n in cuda_kernels.LAUNCHES.items() if n != before[k]}
+    with cuda_kernels.counted() as launches:
+        # three spread windows for the headline, two for fs2 (bench.py:291-349)
+        windows = []
+        ups, step_s = chunked("motion", 24, 150.0)
+        windows.append(round(step_s, 6))
+        ups2, step_s2 = chunked("motion", 12, 75.0)
+        windows.append(round(step_s2, 6))
+        if ups2 > ups:
+            ups, step_s = ups2, step_s2
+        fs2_windows = []
+        fs2_ups, fs2_step_s = chunked("fastslam2", 12, 90.0)
+        fs2_windows.append(round(fs2_step_s, 6))
+        e2e_fps = bench_e2e(e2e_steps, 8, 45.0, num_particles=num_particles, device=device)
+        base_meas = bench_oracle_baseline(num_particles=oracle_particles)
+        base_ups = ORACLE_BASELINE_UPDATES_PER_S
+        # a live measurement outside x0.5-x2 of the pin means another host
+        # class: the ratio would be against the wrong machine (bench.py:327-339)
+        baseline_pin_stale = not (base_ups / 2 <= base_meas <= base_ups * 2)
+        if baseline_pin_stale:
+            print(f"WARNING: measured oracle baseline {base_meas:.0f} updates/s deviates >2x "
+                  f"from the pinned {base_ups}: host class may have changed; re-record "
+                  "ORACLE_BASELINE_UPDATES_PER_S (--pin-oracle)", file=sys.stderr)
+        fs2b_ups, fs2b_step_s = chunked("fastslam2", 10, 60.0)
+        fs2_windows.append(round(fs2b_step_s, 6))
+        if fs2b_ups > fs2_ups:
+            fs2_ups, fs2_step_s = fs2b_ups, fs2b_step_s
+        ups3, step_s3 = chunked("motion", 12, 75.0)
+        windows.append(round(step_s3, 6))
+        if ups3 > ups:
+            ups, step_s = ups3, step_s3
     return {
         "metric": METRIC,
         "value": round(ups),

@@ -38,6 +38,7 @@ so rng 0 here is not JAX's rng 0.
 from __future__ import annotations
 
 import argparse
+import collections
 import glob
 import json
 import os
@@ -124,16 +125,13 @@ class Table:
 
     def __init__(self, names):
         self.rows = {name: [] for name in names}
-        self.launches = {name: {} for name in names}
+        self.launches = {name: collections.Counter() for name in names}
 
     def run(self, name, args, fn):
         """Append ``[fn(rng) for rng in args.rngs]`` to row ``name``."""
-        before = dict(cuda_kernels.LAUNCHES)
-        self.rows[name].append([fn(rng) for rng in args.rngs])
-        tally = self.launches[name]
-        for kernel, count in cuda_kernels.LAUNCHES.items():
-            if count != before[kernel]:
-                tally[kernel] = tally.get(kernel, 0) + count - before[kernel]
+        with cuda_kernels.counted() as launches:
+            self.rows[name].append([fn(rng) for rng in args.rngs])
+        self.launches[name].update(launches)
 
     def oracle(self, name, log, gt, args, *, odometry_noise=(0.0, 0.0)):
         self.rows[name].append([run_oracle_row(log, gt, args.oracle_particles,

@@ -38,7 +38,7 @@ integer sum 8 bytes), a :func:`ppermute` the one tensor each shard receives.
 Beside those it records the re-split of a gathered state into shards
 (``parallel/mesh.py:shard_state``, op ``split``, each shard's slice; XLA
 slices locally and counts none) and the ring exchange kernel's two ring
-shifts of each shard's block (``core/cuda_kernels.py:ring_halo_exchange``
+shifts of each shard's block (``core/cuda_kernels/ring.py:ring_halo_exchange``
 and its cross-process form).  :func:`site` names the part of a step an op
 belongs to (the whole-state gather, the halo, the ring).
 

@@ -148,12 +148,10 @@ def run_steps(config: FastSLAMConfig, n_shards: Optional[int], device,
     state, the estimates, the shards and the kernel launches it made."""
     out = {}
     for mode in modes:
-        before = dict(cuda_kernels.LAUNCHES)
-        state, est, shards = run_mode(mode, config, n_shards, device, measurements,
-                                      chunk=chunk, ticks=ticks, seed=seed, mesh=mesh)
-        out[mode] = {"state": state, "est": est, "shards": shards,
-                     "launches": {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items()
-                                  if v != before[k]}}
+        with cuda_kernels.counted() as launches:
+            state, est, shards = run_mode(mode, config, n_shards, device, measurements,
+                                          chunk=chunk, ticks=ticks, seed=seed, mesh=mesh)
+        out[mode] = {"state": state, "est": est, "shards": shards, "launches": launches}
     return out
 
 
@@ -196,19 +194,20 @@ def check_resamplers(config: FastSLAMConfig, n_shards: Optional[int], device, pr
     mesh = mesh or make_mesh(config, [device] * n_shards)
     use_halo = shard_ancestor_window(
         [s.log_weights for s in shard_state(state, mesh, config)], u0, mesh.group)[2]
-    before = dict(cuda_kernels.LAUNCHES)
-    for name, resample in (("halo", halo_systematic_resample), ("ring", ring_halo_resample)):
-        shards = resample(shard_state(state, mesh, config), u0, mesh, config)
-        if len(shards) != len(mesh.devices):
-            raise AssertionError(f"{name} resampler returned {len(shards)} shards")
-        got = unshard(shards, mesh)
-        for field in ("poses", "log_weights", "lm_mean", "lm_cov", "lm_count"):
-            if not torch.equal(getattr(got, field), getattr(want, field)):
-                raise AssertionError(f"{name} resampler ({profile}): {field} differs from "
-                                     "the single-device resample")
-    launched = lambda k: cuda_kernels.LAUNCHES[k] - before[k]
-    return {"ring_launches": launched("ring_halo_exchange"),
-            "peer_launches": launched("ring_halo_exchange_peers"), "halo_path": int(use_halo)}
+    with cuda_kernels.counted() as launches:
+        for name, resample in (("halo", halo_systematic_resample),
+                               ("ring", ring_halo_resample)):
+            shards = resample(shard_state(state, mesh, config), u0, mesh, config)
+            if len(shards) != len(mesh.devices):
+                raise AssertionError(f"{name} resampler returned {len(shards)} shards")
+            got = unshard(shards, mesh)
+            for field in ("poses", "log_weights", "lm_mean", "lm_cov", "lm_count"):
+                if not torch.equal(getattr(got, field), getattr(want, field)):
+                    raise AssertionError(f"{name} resampler ({profile}): {field} differs "
+                                         "from the single-device resample")
+    return {"ring_launches": launches.get("ring_halo_exchange", 0),
+            "peer_launches": launches.get("ring_halo_exchange_peers", 0),
+            "halo_path": int(use_halo)}
 
 
 def dryrun_multichip(n_shards: int, device="cuda", *, config: Optional[FastSLAMConfig] = None,
@@ -276,10 +275,10 @@ def dryrun_backend(n_shards: int, device="cuda", num_iters: int = 2) -> dict:
         obs.append(np.stack([r, b], -1))
     graph = build_pose_graph(gt + 0.05, obs, max_landmarks=8 * n_shards,
                              max_factors=24 * n_shards, device=device)
-    before = cuda_kernels.LAUNCHES["segment_sum"]
-    poses, _, err = optimize_sharded(graph, make_map_mesh([device] * n_shards),
-                                     num_iters=num_iters)
-    launches = cuda_kernels.LAUNCHES["segment_sum"] - before
+    with cuda_kernels.counted() as launched:
+        poses, _, err = optimize_sharded(graph, make_map_mesh([device] * n_shards),
+                                         num_iters=num_iters)
+    launches = launched.get("segment_sum", 0)
     want = BACKEND_SUMS_PER_SHARD * n_shards * num_iters
     if torch.device(device).type == "cuda" and launches != want:
         raise AssertionError(f"backend: {launches} segment_sum launches, expected {want}")

@@ -12,10 +12,10 @@ neighbour barrier.  Here:
 
 * within one process (its shards on one card) one launch moves the whole
   ring and stream order stands in for the barrier
-  (``core/cuda_kernels.py:ring_halo_exchange``);
+  (``core/cuda_kernels/ring.py:ring_halo_exchange``);
 * on a mesh that spans the processes of a group, each process launches the
   kernel's cross-process form once per call
-  (``core/cuda_kernels.py:ring_halo_exchange_peers``): it writes into one
+  (``core/cuda_kernels/ring.py:ring_halo_exchange_peers``): it writes into one
   of two sets of its neighbour processes' receive buffers, by call parity,
   through CUDA IPC mappings, and its stream waits on their flags in device
   memory on the front end, never on an SM.  The weights, the halo-or-fallback

@@ -240,20 +240,18 @@ def run_check(check: str, particles: int, device, form: str = "steps") -> dict:
     # argmin association to the distributional ones (:104-129); the chunked
     # kernels run in production only
     compare = compare_max if cfg.parity_mode else compare_flips
-    before = dict(cuda_kernels.LAUNCHES)
-    if form == "ticks":
-        out = run_ticks(check, cfg, draws, device, compare)
-    elif form == "chunk":
-        card, cpu = run_chunk(cfg, draws, device), run_chunk(cfg, draws, "cpu")
-        out = compare(card, cpu)
-        if not kernels.uses_fs2(cfg):   # the motion bars hold the returned poses
-            est = compare_estimates(card, cpu)
-            out |= {"estimates": est, "ok": out["ok"] and est["ok"]}
-    else:
-        out = compare(run_steps(cfg, draws, device, planes=check == "fs2"),
-                      run_steps(cfg, draws, "cpu"))
-    launches = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before
-                if cuda_kernels.LAUNCHES[k] != before[k]}
+    with cuda_kernels.counted() as launches:
+        if form == "ticks":
+            out = run_ticks(check, cfg, draws, device, compare)
+        elif form == "chunk":
+            card, cpu = run_chunk(cfg, draws, device), run_chunk(cfg, draws, "cpu")
+            out = compare(card, cpu)
+            if not kernels.uses_fs2(cfg):   # the motion bars hold the returned poses
+                est = compare_estimates(card, cpu)
+                out |= {"estimates": est, "ok": out["ok"] and est["ok"]}
+        else:
+            out = compare(run_steps(cfg, draws, device, planes=check == "fs2"),
+                          run_steps(cfg, draws, "cpu"))
     if torch.device(device).type == "cuda" and not launches.get(KERNEL[check]):
         out["ok"] = False     # the card side must have run the kernel
     return {"check": check, "row": ROW[check], "kernel": KERNEL[check], "form": form,

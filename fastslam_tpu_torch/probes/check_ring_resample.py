@@ -6,7 +6,7 @@ self-exchange).  This one starts ``--processes`` processes joined by gloo,
 each holding ``--shards`` shards of the device, and builds the ring across
 them, so that every exchange crosses a process boundary: on the card each
 process launches the exchange kernel's cross-process form
-(``core/cuda_kernels.py:ring_halo_exchange_peers``); with ``--device cpu``
+(``core/cuda_kernels/ring.py:ring_halo_exchange_peers``); with ``--device cpu``
 the plain exchange runs over the group.  Each process resamples the state
 of ``parallel/dryrun.py:resampler_state`` with ``ring_halo_resample`` on
 healthy weights (the halo path) and on weights collapsed onto the last
@@ -24,12 +24,12 @@ resamplers in turns::
 
 prints one JSON line: per weight profile the largest absolute difference of
 each field over the processes and each process's launches of the
-cross-process kernel, and each process's launch counters after both
-resamples (``launches``, set to 0 before them); for the exchanges and the
+cross-process kernel, and each process's launches of every kernel over
+both resamples (``launches``, all 16 names); for the exchanges and the
 back-to-back exchanges their largest difference, whether all were equal bit
 for bit, and the launches; ``ok`` (every difference 0, and on the card one
 launch per process per resample or exchange); each process's waits over the
-run (``waits``, ``core/cuda_kernels.py:peer_ring_stats``: the calls, those
+run (``waits``, ``core/cuda_kernels/ring.py:peer_ring_stats``: the calls, those
 whose wait (a) was met at once, the longest wait (a), the device ms of the
 waits and the copy); the times of each process (``--reps``); and
 ``device`` and ``power_limit_w``.  A process that
@@ -55,30 +55,31 @@ U0 = 0.0042   # the JAX script's resample offset
 
 def resample_checks(cfg, mesh, device) -> dict:
     """``ring_halo_resample`` of both profiles' states on ``mesh`` against
-    the single-device ``resample_state``, every launch counter set to 0
-    just before: per profile the largest absolute difference of each field
-    and this process's launches of the cross-process kernel, and under
-    ``"launches"`` every counter just after."""
+    the single-device ``resample_state``: per profile the largest absolute
+    difference of each field and this process's launches of the
+    cross-process kernel, and under ``"launches"`` every kernel's launches
+    over both."""
     from fastslam_tpu_torch.core import cuda_kernels, kernels
     from fastslam_tpu_torch.parallel import dryrun
     from fastslam_tpu_torch.parallel.mesh import shard_state, unshard
     from fastslam_tpu_torch.parallel.ring_resample import ring_halo_resample
 
-    for k in cuda_kernels.LAUNCHES:
-        cuda_kernels.LAUNCHES[k] = 0
     out = {}
-    for profile in PROFILES:
-        state = dryrun.resampler_state(cfg, device, profile)
-        u0 = torch.tensor(U0, device=device)
-        want = kernels.resample_state(
-            state, kernels.systematic_resample_indices(torch.exp(state.log_weights), u0), cfg)
-        before = cuda_kernels.LAUNCHES["ring_halo_exchange_peers"]
-        got = unshard(ring_halo_resample(shard_state(state, mesh, cfg), u0, mesh, cfg), mesh)
-        out[profile] = {
-            "max_abs_err": {k: float((getattr(got, k).double() - getattr(want, k).double())
-                                     .abs().max()) for k in FIELDS},
-            "peer_launches": cuda_kernels.LAUNCHES["ring_halo_exchange_peers"] - before}
-    out["launches"] = dict(cuda_kernels.LAUNCHES)
+    with cuda_kernels.counted() as launches:
+        for profile in PROFILES:
+            state = dryrun.resampler_state(cfg, device, profile)
+            u0 = torch.tensor(U0, device=device)
+            want = kernels.resample_state(
+                state, kernels.systematic_resample_indices(torch.exp(state.log_weights), u0),
+                cfg)
+            with cuda_kernels.counted() as peer:
+                got = unshard(ring_halo_resample(shard_state(state, mesh, cfg), u0, mesh, cfg),
+                              mesh)
+            out[profile] = {
+                "max_abs_err": {k: float((getattr(got, k).double() - getattr(want, k).double())
+                                         .abs().max()) for k in FIELDS},
+                "peer_launches": peer.get("ring_halo_exchange_peers", 0)}
+    out["launches"] = dict.fromkeys(cuda_kernels.LAUNCHES, 0) | launches
     return out
 
 
@@ -96,19 +97,19 @@ def check_exchanges(cfg, mesh, device, n: int, seed: int = 0) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(seed + mesh.process_index)
     worst, equal = 0.0, True
-    before = cuda_kernels.LAUNCHES["ring_halo_exchange_peers"]
-    for _ in range(n):
-        blocks = [torch.randn(block_shape(cfg, mesh), generator=gen, device=device)
-                  for _ in mesh.devices]
-        # the kernel's halos live in the ring's buffers until the next
-        # exchange: compare them before that
-        got = cuda_kernels.ring_halo_exchange_peers(blocks, mesh.group)
-        want = cuda_kernels.ring_halo_exchange_peers_ref(blocks, mesh.group)
-        for g, w in zip(got[0] + got[1], want[0] + want[1]):
-            worst = max(worst, float((g - w).abs().max()))
-            equal = equal and torch.equal(g, w)
+    with cuda_kernels.counted() as launches:
+        for _ in range(n):
+            blocks = [torch.randn(block_shape(cfg, mesh), generator=gen, device=device)
+                      for _ in mesh.devices]
+            # the kernel's halos live in the ring's buffers until the next
+            # exchange: compare them before that
+            got = cuda_kernels.ring_halo_exchange_peers(blocks, mesh.group)
+            want = cuda_kernels.ring_halo_exchange_peers_ref(blocks, mesh.group)
+            for g, w in zip(got[0] + got[1], want[0] + want[1]):
+                worst = max(worst, float((g - w).abs().max()))
+                equal = equal and torch.equal(g, w)
     return {"exchanges": n, "max_abs_err": worst, "equal": equal,
-            "launches": cuda_kernels.LAUNCHES["ring_halo_exchange_peers"] - before}
+            "launches": launches.get("ring_halo_exchange_peers", 0)}
 
 
 def check_back_to_back(cfg, mesh, device, n: int, seed: int = 1) -> dict:
@@ -121,22 +122,22 @@ def check_back_to_back(cfg, mesh, device, n: int, seed: int = 1) -> dict:
     from fastslam_tpu_torch.core import cuda_kernels
 
     gen = torch.Generator(device=device).manual_seed(seed + mesh.process_index)
-    before = cuda_kernels.LAUNCHES["ring_halo_exchange_peers"]
     sent, got = [], []
-    for _ in range(n):
-        blocks = [torch.randn(block_shape(cfg, mesh), generator=gen, device=device)
-                  for _ in mesh.devices]
-        lefts, rights = cuda_kernels.ring_halo_exchange_peers(blocks, mesh.group)
-        sent.append(blocks)
-        got.append([h.clone() for h in lefts + rights])
-    launches = cuda_kernels.LAUNCHES["ring_halo_exchange_peers"] - before
+    with cuda_kernels.counted() as launches:
+        for _ in range(n):
+            blocks = [torch.randn(block_shape(cfg, mesh), generator=gen, device=device)
+                      for _ in mesh.devices]
+            lefts, rights = cuda_kernels.ring_halo_exchange_peers(blocks, mesh.group)
+            sent.append(blocks)
+            got.append([h.clone() for h in lefts + rights])
     worst, equal = 0.0, True
     for blocks, halos in zip(sent, got):
         want = cuda_kernels.ring_halo_exchange_peers_ref(blocks, mesh.group)
         for g, w in zip(halos, want[0] + want[1]):
             worst = max(worst, float((g - w).abs().max()))
             equal = equal and torch.equal(g, w)
-    return {"exchanges": n, "max_abs_err": worst, "equal": equal, "launches": launches}
+    return {"exchanges": n, "max_abs_err": worst, "equal": equal,
+            "launches": launches.get("ring_halo_exchange_peers", 0)}
 
 
 def _ms_per_call(fn, reps: int, device) -> float:

@@ -269,25 +269,6 @@ def run_steps(loop: Loop, state, on_device: bool = False):
     return state, out
 
 
-def capture(loop: Loop, static):
-    """The K steps, deciding on the device, captured into one CUDA graph
-    that reads and writes the static state ``static``.  Returns ``(graph,
-    out, tally)``: the last step's output tensor (valid after a replay) and
-    the kernel launches of one replay (the capture launches nothing, so its
-    counts are taken back)."""
-    before = dict(cuda_kernels.LAUNCHES)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        state, out = run_steps(loop, static, on_device=True)
-        for name, dst in fields(static).items():
-            dst.copy_(getattr(state, name))
-    tally = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before
-             if cuda_kernels.LAUNCHES[k] != before[k]}
-    for name, count in tally.items():
-        cuda_kernels.LAUNCHES[name] -= count
-    return graph, out, tally
-
-
 def events():
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
@@ -303,25 +284,23 @@ def reference_run(loop: Loop, gen: torch.Generator):
 
 
 def checked_capture(loop: Loop, ref_state, ref_out):
-    """The K steps captured into one graph (:func:`capture`) and replayed
-    once from the loop's state with the draws :func:`reference_run` left;
-    raises unless the replay ends in ``ref_state`` and ``ref_out`` bit for
-    bit.  Returns ``(graph, static, out, tally)``; the replay's launches are
-    counted."""
+    """The K steps, deciding on the device, captured into one CUDA graph that
+    reads and writes ``static``, a copy of the loop's state, and replayed
+    once with the draws :func:`reference_run` left; raises unless the
+    replay ends in ``ref_state`` and ``ref_out`` bit for bit.  Returns
+    ``(graph, static, out, tally)``: the last step's output tensor (valid
+    after a replay) and the launches of one replay (this one counted)."""
     static = loop.state.clone()
-    graph, out, tally = capture(loop, static)
-    replay(graph, tally)
+    graph = torch.cuda.CUDAGraph()
+    with cuda_kernels.captured() as tally, torch.cuda.graph(graph):
+        state, out = run_steps(loop, static, on_device=True)
+        for name, dst in fields(static).items():
+            dst.copy_(getattr(state, name))
+    cuda_kernels.replay(graph, tally)
     torch.cuda.synchronize(out.device)
     if not (same_state(static, ref_state) and torch.equal(out, ref_out)):
         raise AssertionError("the graph's K steps differ from the eager K steps")
     return graph, static, out, tally
-
-
-def replay(graph, tally: dict) -> None:
-    """One replay of a captured graph, its kernel launches counted."""
-    graph.replay()
-    for name, count in tally.items():
-        cuda_kernels.LAUNCHES[name] += count
 
 
 def time_loop(loop: Loop, device, reps: int = REPS, eager: bool = True) -> dict:
@@ -373,7 +352,7 @@ def time_loop(loop: Loop, device, reps: int = REPS, eager: bool = True) -> dict:
         return best, last
 
     def replayed():
-        replay(graph, tally)
+        cuda_kernels.replay(graph, tally)
         return g_out
 
     graph_ms, g_last = timed(replayed)

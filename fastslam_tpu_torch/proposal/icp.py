@@ -6,14 +6,14 @@ optional leading batch axis of cloud pairs: ``[N, 2]`` clouds, or
 
 * Nearest neighbours are the dense all-pairs search with a first-index
   argmin; on CUDA tensors :func:`nearest_neighbors` launches the
-  hand-written kernel (``core/cuda_kernels.py:icp_correspondences``), on CPU
+  hand-written kernel (``core/cuda_kernels/icp.py:icp_correspondences``), on CPU
   tensors it runs that kernel's plain version.
 * The best-fit rotation is the closed-form 2-D solution (an angle, never an
   SVD); point-to-line ICP solves its 3x3 normal equations by cofactors, with
   the ``|det| > 1e-12`` clamp of the reference.
 * Point-to-line ICP (:func:`icp_point_to_line`, the proposal's scan match)
   runs its whole while-loop in one call of
-  ``core/cuda_kernels.py:icp_point_to_line_fused``: on CUDA tensors one
+  ``core/cuda_kernels/icp.py:icp_point_to_line_fused``: on CUDA tensors one
   kernel launch per call, each pair converging on the device; on CPU
   tensors the kernel's plain version.  Its sums add in one fixed tree order
   (``core/kernels.py:tree_sum``).

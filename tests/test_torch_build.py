@@ -4,21 +4,29 @@
   so an edit to a header or to any source builds anew.
 * The argument types ``core/_build.py`` declares for each launcher match the
   launcher's C signature in ``csrc/``.
-* Each wrapper passes its launcher exactly the arguments, and argument
-  types, that the signature declares (the launch itself is faked).
+* Each wrapper passes its launcher, through the one launch path, exactly
+  the arguments, and argument types, that the signature declares (the
+  library is faked), and the launch is counted.
 """
 
 import ctypes
+import importlib
 import re
 import shutil
+import types
 
 import pytest
 import torch
 
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import _build, cuda_kernels
+from fastslam_tpu_torch.core.cuda_kernels import ring
 
 torch.set_num_threads(1)
+
+# the family modules (``cuda_kernels.segment_sum`` is the wrapper, not its module)
+FAMILIES = [importlib.import_module(f"fastslam_tpu_torch.core.cuda_kernels.{name}") for name in
+            ("deflate", "filter", "icp", "probes", "resample", "ring", "segment_sum")]
 
 
 def test_library_key_follows_every_csrc_file(tmp_path):
@@ -113,6 +121,26 @@ def wrapper_calls(cfg):
     }
 
 
+def fake_library(monkeypatch):
+    """Run the wrappers on meta tensors through the one launch path
+    (``_launch.launch``) with the library faked: returns the list to which
+    each launcher call appends ``(launcher, arguments)``, the device index
+    first and the stream last."""
+    calls = []
+
+    class FakeLibrary:
+        def __getattr__(self, fn):
+            return lambda *args: calls.append((fn, args)) or 0
+
+    for family in FAMILIES:
+        monkeypatch.setattr(family, "require_cuda", lambda *t: torch.device("meta"))
+    monkeypatch.setattr(_build, "load", lambda: FakeLibrary())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    return calls
+
+
 class FakePeerRing:
     """What ``ring_halo_exchange_peers`` reads of a ``PeerRing``, made
     without a process group or a card: its waits enqueue nothing."""
@@ -139,25 +167,15 @@ class FakePeerRing:
 
 @pytest.mark.parametrize("name", sorted(cuda_kernels.LAUNCHES))
 def test_wrappers_pass_what_the_signatures_declare(monkeypatch, name):
-    class FakeLibrary:
-        def __getattr__(self, fn):
-            return fn
-
-    calls = []
-    monkeypatch.setattr(cuda_kernels, "_require_cuda", lambda *t: torch.device("meta"))
-    monkeypatch.setattr(cuda_kernels, "_launch",
-                        lambda fn, device, *args: calls.append((fn, args)))
-    monkeypatch.setattr(_build, "load", lambda: FakeLibrary())
-    monkeypatch.setattr(cuda_kernels, "peer_ring", lambda *a: FakePeerRing())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    calls = fake_library(monkeypatch)
+    monkeypatch.setattr(ring, "peer_ring", lambda *a: FakePeerRing())
     launches = dict(cuda_kernels.LAUNCHES)
     cfg = FastSLAMConfig(num_particles=P, max_landmarks=L, max_measurements=M,
                          parity_mode=False)
     wrapper_calls(cfg)[name]()
     (fn, args), = calls
     assert fn == f"{name}_launch"
-    # the device index comes first and the stream last, both added by _launch
-    declared = _build._SIGNATURES[fn][1:-1]
-    assert [type(a) for a in args] == declared
+    # the device index comes first and the stream last, both added by launch
+    assert [type(a) for a in args] == _build._SIGNATURES[fn]
     assert cuda_kernels.LAUNCHES[name] == launches[name] + 1
     cuda_kernels.LAUNCHES[name] = launches[name]

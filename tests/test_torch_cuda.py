@@ -12,6 +12,9 @@ import torch
 
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import cuda_kernels, kernels
+from fastslam_tpu_torch.core.cuda_kernels import filter as filter_kernels
+from fastslam_tpu_torch.core.cuda_kernels import icp as icp_kernels
+from fastslam_tpu_torch.core.cuda_kernels import ring as ring_kernels
 from fastslam_tpu_torch.core.state import init_planes_state, pad_measurements
 
 pytestmark = pytest.mark.cuda
@@ -288,8 +291,8 @@ def test_fs2_kernels_equal_plain_at_every_geometry(device, monkeypatch, kernel, 
     """The results do not depend on the tile or the lanes per particle."""
     cfg, state, z, zv, noise, prior, dial = ragged_fs2_inputs(device, 64, True, 7)
     kernel_fn, plain_fn = FS2_FUNCTIONS[kernel]
-    monkeypatch.setattr(cuda_kernels, "FS2_TILE", geometry[0])
-    monkeypatch.setattr(cuda_kernels, "FS2_LANES", geometry[1])
+    monkeypatch.setattr(filter_kernels, "FS2_TILE", geometry[0])
+    monkeypatch.setattr(filter_kernels, "FS2_LANES", geometry[1])
     got = run_fs2(kernel, kernel_fn, state, z, zv, noise, prior, dial, cfg)
     torch.cuda.synchronize()
     assert_fs2_equal(got, run_fs2(kernel, plain_fn, state, z, zv, noise, prior, dial, cfg))
@@ -360,8 +363,8 @@ def test_motion_tick_kernel_equals_plain_at_every_geometry(device, monkeypatch, 
                                                            geometry):
     """The results do not depend on the tile or the lanes per particle."""
     cfg, state, poses, z, zv = ragged_motion_inputs(device, 64, parity, 7)
-    monkeypatch.setattr(cuda_kernels, "MOTION_TILE", geometry[0])
-    monkeypatch.setattr(cuda_kernels, "MOTION_LANES", geometry[1])
+    monkeypatch.setattr(filter_kernels, "MOTION_TILE", geometry[0])
+    monkeypatch.setattr(filter_kernels, "MOTION_LANES", geometry[1])
     got = run_motion(cuda_kernels.fused_update_planes, cfg, state, poses, z, zv)
     torch.cuda.synchronize()
     assert_fs2_equal(got, run_motion(cuda_kernels.fused_update_planes_ref, cfg, state,
@@ -425,8 +428,8 @@ def test_motion_chunked_kernel_equals_plain_at_every_geometry(device, monkeypatc
                                                               geometry):
     """The chunk's results do not depend on the tile or the lanes."""
     args = ragged_motion_chunk(device, 64, parity, 7)
-    monkeypatch.setattr(cuda_kernels, "MOTION_TILE", geometry[0])
-    monkeypatch.setattr(cuda_kernels, "MOTION_LANES", geometry[1])
+    monkeypatch.setattr(filter_kernels, "MOTION_TILE", geometry[0])
+    monkeypatch.setattr(filter_kernels, "MOTION_LANES", geometry[1])
     got = run_motion_chunk(cuda_kernels.fused_update_planes_multi, *args)
     torch.cuda.synchronize()
     assert_fs2_equal(got, run_motion_chunk(cuda_kernels.fused_update_planes_multi_ref, *args))
@@ -492,8 +495,8 @@ def test_fused_icp_kernel_matches_plain(device, b, n, mt, tol):
 @pytest.mark.parametrize("geometry", [(32, 1), (128, 4), (256, 8), (512, 16), (1024, 32)])
 def test_fused_icp_kernel_equals_plain_at_every_geometry(device, monkeypatch, geometry):
     args = fused_icp_inputs(device, 9, 180, 180, 3)
-    monkeypatch.setattr(cuda_kernels, "ICP_THREADS", geometry[0])
-    monkeypatch.setattr(cuda_kernels, "ICP_LANES", geometry[1])
+    monkeypatch.setattr(icp_kernels, "ICP_THREADS", geometry[0])
+    monkeypatch.setattr(icp_kernels, "ICP_LANES", geometry[1])
     got = cuda_kernels.icp_point_to_line_fused(*args, 100, 1e-5)
     torch.cuda.synchronize()
     assert_icp_equal(got, cuda_kernels.icp_point_to_line_ref(*args, 100, 1e-5))
@@ -806,7 +809,7 @@ def silent_worker(rank: int, port: int, outdir: str, timeout: float) -> None:
         assert all(torch.equal(g, w) for g, w in zip(lefts + rights, want[0] + want[1]))
     out = {"error": None, "refused": None}
     if rank == 0:
-        cuda_kernels.PEER_TIMEOUT_S = timeout
+        ring_kernels.PEER_TIMEOUT_S = timeout
         t0 = time.monotonic()
         try:
             cuda_kernels.ring_halo_exchange_peers(blocks, group)

@@ -31,6 +31,7 @@ from fastslam_tpu.io import checkpoint as jax_checkpoint
 from fastslam_tpu_torch.app.runner import ProductionHooks, SLAMRunner
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import cuda_kernels
+from fastslam_tpu_torch.core.cuda_kernels.deflate import _multmodp, _x2nmodp
 from fastslam_tpu_torch.core.state import FilterState, PlanesState, init_state, to_planes
 from fastslam_tpu_torch.eval.metrics import evaluate_tick
 from fastslam_tpu_torch.io import checkpoint
@@ -115,8 +116,8 @@ def test_crc_fold_equals_zlib(nbytes, row, seed):
     _, info = cuda_kernels.deflate_fixed(torch.from_numpy(data), row, seed)
     assert int(info[1]) == zlib.crc32(data.tobytes(), seed)
     a, b = data[: nbytes // 3].tobytes(), data[nbytes // 3:].tobytes()
-    shift = cuda_kernels._x2nmodp(torch.tensor([len(b)]), 3)
-    combined = int(cuda_kernels._multmodp(shift, torch.tensor([zlib.crc32(a)]))) ^ zlib.crc32(b)
+    shift = _x2nmodp(torch.tensor([len(b)]), 3)
+    combined = int(_multmodp(shift, torch.tensor([zlib.crc32(a)]))) ^ zlib.crc32(b)
     assert combined == zlib.crc32(a + b)
 
 

@@ -13,7 +13,9 @@ import re
 import pytest
 
 from fastslam_tpu_torch.core import _build, cuda_kernels
+from fastslam_tpu_torch.core.cuda_kernels import filter as filter_kernels
 from fastslam_tpu_torch.core.cuda_kernels import fs2_launch_geometry, fs2_shared_bytes
+from fastslam_tpu_torch.core.cuda_kernels.filter import _STATIC_SMEM_BYTES
 
 LIMIT = 232_448
 
@@ -26,10 +28,10 @@ def test_every_slot_count_gets_a_tile_that_fits(m):
         assert tile * lanes % 32 == 0 and tile * lanes <= 1024, (l, tile, lanes)
         staged = fs2_shared_bytes(l, m, tile)
         assert staged >= 4 * 6 * l * tile
-        assert staged + cuda_kernels._STATIC_SMEM_BYTES <= LIMIT, (l, staged)
+        assert staged + _STATIC_SMEM_BYTES <= LIMIT, (l, staged)
         # the largest tile that fits, up to the timed one
         if tile < cuda_kernels.FS2_TILE:
-            assert fs2_shared_bytes(l, m, 2 * tile) + cuda_kernels._STATIC_SMEM_BYTES > LIMIT
+            assert fs2_shared_bytes(l, m, 2 * tile) + _STATIC_SMEM_BYTES > LIMIT
     assert fs2_launch_geometry(64, m) == (cuda_kernels.FS2_TILE, cuda_kernels.FS2_LANES)
     assert fs2_launch_geometry(256, m)[0] == 32
 
@@ -47,8 +49,8 @@ def test_a_block_that_cannot_fit_is_refused():
 
 @pytest.mark.parametrize("tile,lanes,want", [(128, 1, 128), (64, 2, 64), (256, 2, 128)])
 def test_a_larger_tile_shrinks_only_to_fit(monkeypatch, tile, lanes, want):
-    monkeypatch.setattr(cuda_kernels, "FS2_TILE", tile)
-    monkeypatch.setattr(cuda_kernels, "FS2_LANES", lanes)
+    monkeypatch.setattr(filter_kernels, "FS2_TILE", tile)
+    monkeypatch.setattr(filter_kernels, "FS2_LANES", lanes)
     assert fs2_launch_geometry(64, 16) == (want, lanes)
     assert fs2_launch_geometry(256, 16) == (32, lanes)
 
@@ -60,7 +62,7 @@ def test_the_kernels_launch_with_the_same_bytes_and_limits():
     constant = lambda name: int(re.search(rf"{name} = (\d+);", text).group(1))
     assert constant("kPlanes") == 6
     assert constant("kSmemOptInLimit") == LIMIT == cuda_kernels.SMEM_OPT_IN_BYTES
-    assert constant("kStaticSmemBytes") == cuda_kernels._STATIC_SMEM_BYTES
+    assert constant("kStaticSmemBytes") == _STATIC_SMEM_BYTES
     body = re.search(r"inline size_t tile_shared_bytes\([^)]*\) \{(.*?)\n\}", text, re.S)
     terms = re.sub(r"static_cast<size_t>|\s", "", body.group(1))
     # the same sum as fs2_shared_bytes: planes, written bits, counts, tables

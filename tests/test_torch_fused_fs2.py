@@ -23,6 +23,7 @@ from fastslam_tpu.core.pallas_kernels import _sin_cos as jax_sin_cos
 from fastslam_tpu.core.pallas_kernels import fused_fs2_planes as jax_fused_fs2_planes
 
 from fastslam_tpu_torch.core import cuda_kernels
+from fastslam_tpu_torch.core.cuda_kernels.filter import _sin_cos
 from fastslam_tpu_torch.interop import config_from_jax_fields
 
 torch.set_num_threads(1)
@@ -175,7 +176,7 @@ def test_fused_fs2_without_measurements_samples_the_prior():
 
 def test_sin_cos_matches_jax_and_exact_trig():
     x = np.linspace(-np.pi, np.pi, 200_001).astype(np.float32)
-    s, c = cuda_kernels._sin_cos(torch.from_numpy(x))
+    s, c = _sin_cos(torch.from_numpy(x))
     js, jc = jax_sin_cos(jnp.asarray(x))
     np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=0, atol=3e-7)
     np.testing.assert_allclose(c.numpy(), np.asarray(jc), rtol=0, atol=3e-7)

@@ -36,8 +36,13 @@ from fastslam_tpu.core.pallas_kernels import (
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import _build, cuda_kernels
 from fastslam_tpu_torch.core.cuda_kernels import motion_launch_geometry
+from fastslam_tpu_torch.core.cuda_kernels._launch import ptr
+from fastslam_tpu_torch.core.cuda_kernels.filter import (
+    _measurement_loop, _measurement_table, _propagate_rows, _start,
+)
 from fastslam_tpu_torch.interop import config_from_jax_fields
 
+from test_torch_build import fake_library
 from test_torch_fused_multi import chunk_inputs
 from test_torch_fused_update import PLANES, base_config, seeded_planes
 
@@ -164,20 +169,18 @@ def staged_chunk_model(st, z, z_valid, noisy_rot, noisy_trans, cfg, tile):
         t[k] = torch.from_numpy(np.where(staged, st[k], UNSTAGED).astype(np.float32))
 
     planes = tuple(t[k] if k in names else None for k in PLANES)
-    z4, zvalid, mlast = cuda_kernels._measurement_table(torch.from_numpy(z),
-                                                        torch.from_numpy(z_valid))
+    z4, zvalid, mlast = _measurement_table(torch.from_numpy(z), torch.from_numpy(z_valid))
     rot, trans = torch.from_numpy(noisy_rot), torch.from_numpy(noisy_trans)
-    slot_t, pose_rows, carry = cuda_kernels._start(t["poses"], t["log_weights"], planes,
-                                                   t["lm_count"], cfg)
+    slot_t, pose_rows, carry = _start(t["poses"], t["log_weights"], planes, t["lm_count"],
+                                      cfg)
     cnr, snr = torch.cos(rot), torch.sin(rot)
     c = rot.shape[0]
     traj = torch.empty((4, c, p))
     stored = []
     for k, mtrip in enumerate(mlast.tolist()):
-        pose_rows = cuda_kernels._propagate_rows(*pose_rows, rot[k], trans[k], cnr[k], snr[k])
+        pose_rows = _propagate_rows(*pose_rows, rot[k], trans[k], cnr[k], snr[k])
         before = [bits(x) for x in carry[:7]]
-        carry = cuda_kernels._measurement_loop(carry, pose_rows, z4[k], zvalid[k], mtrip,
-                                               slot_t, cfg)
+        carry = _measurement_loop(carry, pose_rows, z4[k], zvalid[k], mtrip, slot_t, cfg)
         stored.append(np.any([bits(x) != b for x, b in zip(carry[:7], before)], axis=0))
         traj[:3, k] = torch.cat(pose_rows[:3])
         traj[3, k] = carry[8][0]
@@ -239,16 +242,7 @@ def test_staged_chunk_bookkeeping_equals_the_plain_version(parity, p, l, c):
 def test_the_wrapper_launches_with_the_geometry(monkeypatch, parity, l):
     """Production up to the packed key's 256 slots, parity up to 512 (a
     tile below 32)."""
-
-    class FakeLibrary:
-        def __getattr__(self, fn):
-            return fn
-
-    calls, trig = [], []
-    monkeypatch.setattr(cuda_kernels, "_require_cuda", lambda *t: torch.device("meta"))
-    monkeypatch.setattr(cuda_kernels, "_launch",
-                        lambda fn, device, *args: calls.append((fn, args)))
-    monkeypatch.setattr(_build, "load", lambda: FakeLibrary())
+    calls, trig = fake_library(monkeypatch), []
     for name in ("cos", "sin"):
         real = getattr(torch, name)
         monkeypatch.setattr(torch, name, lambda x, real=real: trig.append(tuple(x.shape))
@@ -263,10 +257,10 @@ def test_the_wrapper_launches_with_the_geometry(monkeypatch, parity, l):
         meta(l, p) if parity else None, meta(l, p), meta(p, dtype=torch.int32),
         meta(c, m, 2), meta(c, m, dtype=torch.bool), meta(c, p), meta(c, p), cfg)
     cuda_kernels.LAUNCHES["fused_update_planes_multi"] = launches
-    (fn, args), = calls
+    (fn, (_, *args, _)), = calls
     assert fn == "fused_update_planes_multi_launch"
     assert len(args) == len(_build._SIGNATURES[fn]) - 2
-    pointers = [a for a in args if isinstance(a, type(cuda_kernels._ptr(None)))]
+    pointers = [a for a in args if isinstance(a, type(ptr(None)))]
     assert len(pointers) == 20                 # no cos/sin arrays of the motion
     assert [a.value for a in args[20:25]] == [p, l, m, c, int(parity)]
     assert (args[-2].value, args[-1].value) == motion_launch_geometry(l, m, parity)

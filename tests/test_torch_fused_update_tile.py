@@ -29,7 +29,11 @@ import torch
 from fastslam_tpu_torch.config import FastSLAMConfig
 from fastslam_tpu_torch.core import _build, cuda_kernels
 from fastslam_tpu_torch.core.cuda_kernels import motion_launch_geometry, motion_shared_bytes
+from fastslam_tpu_torch.core.cuda_kernels.filter import (
+    _INVALID_KEY, _STATIC_SMEM_BYTES, _initial_detp, _packed_argmin,
+)
 
+from test_torch_build import fake_library
 from test_torch_fused_update import assert_update_matches, base_config, run_both, seeded_planes
 
 torch.set_num_threads(1)
@@ -52,11 +56,11 @@ def test_every_slot_count_gets_a_tile_that_fits(parity, m):
         assert tile * lanes <= 1024
         staged = motion_shared_bytes(l, m, tile, parity)
         assert staged >= 4 * (7 if parity else 6) * l * tile
-        assert staged + cuda_kernels._STATIC_SMEM_BYTES <= LIMIT, (l, staged)
+        assert staged + _STATIC_SMEM_BYTES <= LIMIT, (l, staged)
         if tile < cuda_kernels.MOTION_TILE:   # the largest tile that fits
             bigger = 2 * tile if tile < 32 else tile + 32
             assert motion_shared_bytes(l, m, bigger, parity) \
-                + cuda_kernels._STATIC_SMEM_BYTES > LIMIT
+                + _STATIC_SMEM_BYTES > LIMIT
     assert motion_launch_geometry(64, m, parity) == (cuda_kernels.MOTION_TILE,
                                                      cuda_kernels.MOTION_LANES)
 
@@ -131,7 +135,7 @@ def test_split_scans_give_the_plain_association(lanes):
         cc = t["lm_cc"] if parity else t["lm_cb"]
         slot = torch.arange(l, dtype=torch.int32)[:, None]
         cnt = t["lm_count"].reshape(1, p)
-        detp = cuda_kernels._initial_detp(slot, cnt, t["lm_ca"], t["lm_cb"], cc, t["lm_cd"])
+        detp = _initial_detp(slot, cnt, t["lm_ca"], t["lm_cb"], cc, t["lm_cd"])
         qx, qy = (torch.tensor(v, dtype=torch.float32) for v in rng.normal(0, 3, 2))
         dx, dy = t["lm_mx"] - qx, t["lm_my"] - qy
         d2f = dx * (t["lm_cd"] * dx - t["lm_cb"] * dy) + dy * (-cc * dx + t["lm_ca"] * dy)
@@ -141,12 +145,12 @@ def test_split_scans_give_the_plain_association(lanes):
             want = torch.where(hit, slot, l).amin(dim=0)
             got = [lanes_first_hit(hit[:, i].numpy(), lanes) for i in range(p)]
         else:
-            _, want = cuda_kernels._packed_argmin(d2f, detp, slot, gate)
+            _, want = _packed_argmin(d2f, detp, slot, gate)
             usable = detp > 0.0
             key = torch.clamp_min(d2f * (1.0 / torch.where(usable, detp, 1.0)), 0.0)
             key = torch.where(usable, (key.view(torch.int32) & ~0xFF) | slot,
-                              cuda_kernels._INVALID_KEY)
-            got = [min(int(key[g::lanes, i].min()) if g < l else cuda_kernels._INVALID_KEY
+                              _INVALID_KEY)
+            got = [min(int(key[g::lanes, i].min()) if g < l else _INVALID_KEY
                        for g in range(lanes)) & 0xFF for i in range(p)]
             want = want[0]
         assert got == want.tolist()
@@ -177,15 +181,7 @@ def test_plain_version_matches_jax_on_maps_filling_to_l(parity):
 @pytest.mark.parametrize("parity", [False, True])
 @pytest.mark.parametrize("l", [16, 64, 256])
 def test_the_wrapper_launches_with_the_geometry(monkeypatch, parity, l):
-    class FakeLibrary:
-        def __getattr__(self, fn):
-            return fn
-
-    calls = []
-    monkeypatch.setattr(cuda_kernels, "_require_cuda", lambda *t: torch.device("meta"))
-    monkeypatch.setattr(cuda_kernels, "_launch",
-                        lambda fn, device, *args: calls.append((fn, args)))
-    monkeypatch.setattr(_build, "load", lambda: FakeLibrary())
+    calls = fake_library(monkeypatch)
     p, m = 100, 16
     meta = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device="meta")
     cfg = FastSLAMConfig(num_particles=p, max_landmarks=l, max_measurements=m,
@@ -196,7 +192,7 @@ def test_the_wrapper_launches_with_the_geometry(monkeypatch, parity, l):
         meta(l, p) if parity else None, meta(l, p), meta(p, dtype=torch.int32),
         meta(m, 2), meta(m, dtype=torch.bool), cfg)
     cuda_kernels.LAUNCHES["fused_update_planes"] = launches
-    (fn, args), = calls
+    (fn, (_, *args, _)), = calls
     assert fn == "fused_update_planes_launch"
     assert [a.value for a in args[14:18]] == [p, l, m, int(parity)]
     assert (args[-2].value, args[-1].value) == motion_launch_geometry(l, m, parity)

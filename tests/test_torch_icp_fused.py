@@ -31,11 +31,14 @@ from fastslam_tpu.proposal import icp as jax_icp
 
 from fastslam_tpu_torch.app.runner import odometry, scan_points
 from fastslam_tpu_torch.core import _build, cuda_kernels
+from fastslam_tpu_torch.core.cuda_kernels import icp as icp_kernels
 from fastslam_tpu_torch.core.kernels import tree_sum
 from fastslam_tpu_torch.drivers.replay import record_log
 from fastslam_tpu_torch.drivers.sim_world import SimWorld
 from fastslam_tpu_torch.interop import config_from_jax_fields
 from fastslam_tpu_torch.proposal import icp
+
+from test_torch_build import fake_library
 
 torch.set_num_threads(1)
 
@@ -212,17 +215,9 @@ def test_fused_wrapper_refuses_negative_max_iter():
 
 def launched_args(monkeypatch, n, mt):
     """The arguments the fused wrapper hands its launcher for a CUDA call
-    (the launch faked, the tensors on the meta device)."""
-    class FakeLibrary:
-        def __getattr__(self, fn):
-            return fn
-
-    calls = []
-    monkeypatch.setattr(cuda_kernels, "_require_cuda", lambda *t: torch.device("meta"))
-    monkeypatch.setattr(cuda_kernels, "_ptr", lambda t: t)     # the tensors themselves
-    monkeypatch.setattr(cuda_kernels, "_launch",
-                        lambda fn, device, *args: calls.append((fn, args)))
-    monkeypatch.setattr(_build, "load", lambda: FakeLibrary())
+    (the library faked, the tensors on the meta device)."""
+    calls = fake_library(monkeypatch)
+    monkeypatch.setattr(icp_kernels, "ptr", lambda t: t)     # the tensors themselves
     meta = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device="meta")
     before = cuda_kernels.LAUNCHES["icp_point_to_line"]
     out = cuda_kernels.icp_point_to_line_fused(
@@ -230,7 +225,7 @@ def launched_args(monkeypatch, n, mt):
         meta(3, mt, dtype=torch.bool), meta(3, mt, 2), meta(3, mt, dtype=torch.bool), 7, 1e-5)
     assert cuda_kernels.LAUNCHES["icp_point_to_line"] == before + 1
     cuda_kernels.LAUNCHES["icp_point_to_line"] = before
-    (fn, args), = calls
+    (fn, (_, *args, _)), = calls
     assert fn == "icp_point_to_line_launch"
     assert [tuple(t.shape) for t in out] == [(3,), (3, 2), (3,), (3,)]
     return [getattr(a, "value", a) for a in args]

@@ -1,7 +1,7 @@
 """The routing and the protocol of the cross-process ring exchange, checked
 without a GPU.
 
-``core/cuda_kernels.py:ring_peer_routes`` gives, for each local shard of a
+``core/cuda_kernels/ring.py:ring_peer_routes`` gives, for each local shard of a
 process, the process, local shard, receive buffer and buffer set that each
 of its block's two writes goes to; the kernel (``csrc/ring_halo.cu``) writes
 through exactly those pointers.  It must route as the plain exchange does:
@@ -32,6 +32,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from fastslam_tpu_torch.core import cuda_kernels
+from fastslam_tpu_torch.core.cuda_kernels import ring as ring_kernels
 from fastslam_tpu_torch.parallel import collectives
 
 torch.set_num_threads(1)
@@ -226,18 +227,18 @@ def fake_ring(monkeypatch, log, bases, rank, n_local, nbytes):
         def ring_peers_write(self, index, *args):
             return self._record("write", *args)
 
-        ring_halo_exchange_peers_launch = "ring_halo_exchange_peers_launch"
-
-    def launch(fn, device, src, to_left, to_right, signal, flags, s, n, epoch):
-        log.append(("launch", array(to_left, s.value, ctypes.c_uint64),
-                    array(to_right, s.value, ctypes.c_uint64),
-                    array(signal, 4, ctypes.c_uint64), flags.value, epoch.value))
+        def ring_halo_exchange_peers_launch(self, index, src, to_left, to_right, signal,
+                                            flags, s, n, epoch, stream):
+            log.append(("launch", array(to_left, s.value, ctypes.c_uint64),
+                        array(to_right, s.value, ctypes.c_uint64),
+                        array(signal, 4, ctypes.c_uint64), flags.value, epoch.value))
+            return 0
 
     monkeypatch.setattr(_build, "load", lambda: FakeLibrary())
-    monkeypatch.setattr(cuda_kernels, "_require_cuda", lambda *t: torch.device("meta"))
-    monkeypatch.setattr(cuda_kernels, "_launch", launch)
-    monkeypatch.setattr(cuda_kernels, "peer_ring", lambda *a: ring)
+    monkeypatch.setattr(ring_kernels, "require_cuda", lambda *t: torch.device("meta"))
+    monkeypatch.setattr(ring_kernels, "peer_ring", lambda *a: ring)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream(0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     return ring
 
 
@@ -295,7 +296,7 @@ def test_a_call_past_its_deadline_releases_the_stream_and_raises(monkeypatch):
     log = []
     peer_ring = cuda_kernels.peer_ring
     ring = fake_ring(monkeypatch, log, bases, 0, 1, 1024)
-    monkeypatch.setattr(cuda_kernels, "PEER_TIMEOUT_S", 0.05)
+    monkeypatch.setattr(ring_kernels, "PEER_TIMEOUT_S", 0.05)
     blocks = [torch.empty((16, 16), device="meta")]
     launches = cuda_kernels.LAUNCHES["ring_halo_exchange_peers"]
     cuda_kernels.ring_halo_exchange_peers(blocks, "group")
@@ -318,7 +319,7 @@ def test_a_call_past_its_deadline_releases_the_stream_and_raises(monkeypatch):
     assert ring.stats["calls"] == 1          # the failed call is not counted
     cuda_kernels.LAUNCHES["ring_halo_exchange_peers"] = launches
     key = ("group", torch.device("meta"), 1, (16, 16))
-    monkeypatch.setattr(cuda_kernels, "_PEER_RINGS", {key: ring})
+    monkeypatch.setattr(ring_kernels, "_PEER_RINGS", {key: ring})
     with pytest.raises(RuntimeError, match="failed earlier"):
         peer_ring(*key)
 
@@ -422,7 +423,7 @@ def test_protocol_model_catches_one_buffer_set(monkeypatch):
     one call ahead overwrites halos before or while they are read."""
     lefts = ppermute_sources(monkeypatch, 2, 1, 1)
     rights = ppermute_sources(monkeypatch, 2, 1, -1)
-    monkeypatch.setattr(cuda_kernels, "PEER_SETS", 1)
+    monkeypatch.setattr(ring_kernels, "PEER_SETS", 1)
     failures = 0
     for seed in range(40):
         try:
@@ -435,7 +436,7 @@ def test_protocol_model_catches_one_buffer_set(monkeypatch):
 
 def test_cpu_blocks_take_the_plain_exchange_and_no_ring(monkeypatch):
     called = []
-    monkeypatch.setattr(cuda_kernels, "peer_ring", lambda *a: called.append(a))
+    monkeypatch.setattr(ring_kernels, "peer_ring", lambda *a: called.append(a))
     monkeypatch.setattr(collectives, "dist", FakeDist(1))
     blocks = [torch.randn(5, 7) for _ in range(3)]
     launches = dict(cuda_kernels.LAUNCHES)

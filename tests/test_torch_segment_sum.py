@@ -1,4 +1,4 @@
-"""The deterministic segment sum (``core/cuda_kernels.py:segment_sum``), the
+"""The deterministic segment sum (``core/cuda_kernels/segment_sum.py:segment_sum``), the
 port-only kernel of the pose-graph backend, through its plain version.
 
 * Against a float64 segment sum within 1e-6 of each segment's sum of
@@ -28,9 +28,10 @@ import torch
 
 from fastslam_tpu_torch.core import _build, cuda_kernels
 from fastslam_tpu_torch.core.cuda_kernels import (
-    SEGMENT_LANES, SHORT_SEGMENT, Segments, _check_segment_inputs, long_segments,
-    segment_layout, segment_sum, segment_sum_ref,
+    SEGMENT_LANES, SHORT_SEGMENT, Segments, long_segments, segment_layout, segment_sum,
+    segment_sum_ref,
 )
+from fastslam_tpu_torch.core.cuda_kernels.segment_sum import _check_segment_inputs
 
 torch.set_num_threads(1)
 
